@@ -1,0 +1,103 @@
+"""Shared CLI helpers: device choice, checkpoint loading, image saving."""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from llamagen_tpu_torch.config import gpt_config, vq_config
+from llamagen_tpu.utils.convert import load_torch_state_dict
+from llamagen_tpu_torch.models import gpt as gpt_lib
+from llamagen_tpu_torch.models import vq as vq_lib
+
+
+def get_device(name: str) -> torch.device:
+    """The requested device; `cuda` without a GPU raises (no CPU fallback)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch sees no CUDA device")
+    return device
+
+
+def _load(path: str) -> Dict[str, torch.Tensor]:
+    """A released `.pt` (trainer wrappers and `module.` prefixes removed)."""
+    out = {}
+    for k, v in load_torch_state_dict(path).items():
+        for prefix in ("module.", "_orig_mod."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        out[k] = torch.from_numpy(v)
+    return out
+
+
+def _load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    missing, _ = model.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"checkpoint lacks {missing[:8]}")
+
+
+def load_gpt(gpt_ckpt: Optional[str], gpt_model: str, image_size: int,
+             downsample_size: int, dtype: torch.dtype,
+             device: torch.device) -> gpt_lib.Transformer:
+    """c2i GPT from a `.pt` state dict, or seeded random weights (the
+    reference init, zero head) when `gpt_ckpt` is None."""
+    latent = image_size // downsample_size
+    cfg = gpt_config(gpt_model, block_size=latent * latent, cls_token_num=1)
+    model = gpt_lib.Transformer(cfg, device=device, dtype=dtype)
+    if gpt_ckpt is None:
+        gpt_lib.init_weights(model, seed=0)
+    else:
+        _load_into(model, _load(gpt_ckpt))
+    return model.eval()
+
+
+def load_vq(vq_ckpt: Optional[str], vq_model: str, codebook_size: int,
+            codebook_embed_dim: int, dtype: torch.dtype,
+            device: torch.device) -> vq_lib.VQModel:
+    """VQ decoder from a `.pt` state dict, or seeded random weights."""
+    cfg = vq_config(vq_model, codebook_size=codebook_size,
+                    codebook_embed_dim=codebook_embed_dim)
+    model = vq_lib.VQModel(cfg, device=device, dtype=dtype)
+    if vq_ckpt is None:
+        vq_lib.init_weights(model, seed=0)
+    else:
+        _load_into(model, vq_lib.decode_half(_load(vq_ckpt)))
+    return model.eval()
+
+
+def _png(rgb: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] -> PNG bytes (zlib only, no imaging library)."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def save_image_grid(images: np.ndarray, path: str, nrow: int = 4,
+                    padding: int = 2) -> None:
+    """images: [N, H, W, 3] in [-1, 1] -> grid png (torchvision-style)."""
+    imgs = np.clip((np.asarray(images, np.float32) + 1) * 127.5, 0, 255
+                   ).astype(np.uint8)
+    n, h, w, c = imgs.shape
+    ncol = nrow
+    nrows = (n + ncol - 1) // ncol
+    grid = np.full(((h + padding) * nrows - padding,
+                    (w + padding) * ncol - padding, c), 255, np.uint8)
+    for i, img in enumerate(imgs):
+        r, cc = divmod(i, ncol)
+        grid[r * (h + padding):r * (h + padding) + h,
+             cc * (w + padding):cc * (w + padding) + w] = img
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_png(grid))

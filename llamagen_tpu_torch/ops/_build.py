@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+Every `llamagen_tpu_torch/csrc/*.cu` file is compiled by `nvcc` into ONE
+shared library with a plain C interface, at first use, into `.build/` at
+the repository root (git-ignored). The library's name carries a hash of
+the sources, so an edited source builds anew and a stale library is never
+loaded. The library is bound with `ctypes`: each C entry point takes raw
+device pointers and the CUDA stream as `void*` and returns `cudaError_t`.
+
+Nothing is compiled when this module is imported, only when a wrapper on
+a CUDA tensor first asks for the library. A missing `nvcc` or a failed
+build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _source_hash(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "llamagen_tpu_torch cannot be built")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the sources unless the library for their hash exists."""
+    out = BUILD_DIR / f"libllamagen_kernels_{_source_hash(_sources())}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    # compile to a temporary name and rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first call (cached per process)."""
+    return ctypes.CDLL(str(build()))
+
+
+@functools.lru_cache(maxsize=None)
+def c_function(name: str, n_pointers: int, n_ints: int, n_floats: int = 0):
+    """Bind `cudaError_t name(void* x n_pointers, int x n_ints,
+    float x n_floats, void* stream)` from the library."""
+    fn = getattr(load_library(), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")

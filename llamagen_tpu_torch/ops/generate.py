@@ -1,0 +1,94 @@
+"""Autoregressive c2i sampling with classifier-free guidance.
+
+Counterpart of `llamagen_tpu/ops/generate.py::generate` on its kernel path:
+prefill of the [cond ‖ null] double batch, then a Python loop of
+`decode_step` (decode-attention kernel in every layer) -> `cfg_mix` ->
+penalties -> `sample`. The JAX scan becomes a plain loop; CUDA graphs are
+later work.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from llamagen_tpu_torch.config import find_multiple
+from llamagen_tpu_torch.models import gpt
+from llamagen_tpu_torch.ops import sampling
+from llamagen_tpu_torch.ops.attention import TAIL
+
+
+def build_cfg_batch(model: gpt.Transformer, cond: torch.Tensor,
+                    use_cfg: bool) -> torch.Tensor:
+    """[cond ‖ null-class] double batch (c2i)."""
+    if not use_cfg:
+        return cond
+    return torch.cat([cond, torch.full_like(cond, model.cfg.num_classes)])
+
+
+@torch.no_grad()
+def generate(model: gpt.Transformer, cond: torch.Tensor, *,
+             max_new_tokens: int,
+             generator: Optional[torch.Generator] = None,
+             cfg_scale: float = 1.0, cfg_interval: int = -1,
+             temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+             presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+             repetition_penalty: float = 1.0, sample_logits: bool = True,
+             compute_dtype: torch.dtype = torch.bfloat16,
+             cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Sample `max_new_tokens` code-grid tokens for class labels `cond [B]`
+    (on the model's device). `generator` lives on that device too.
+    cache_dtype torch.int8 keeps an int8 KV cache with an exact 32-row tail.
+    Returns token ids [B, max_new_tokens] (int64)."""
+    cfg = model.cfg
+    dev = cond.device
+    use_cfg = cfg_scale > 1.0
+    t = cfg.cls_token_num
+    batch_cfg = 2 * cond.shape[0] if use_cfg else cond.shape[0]
+    max_seq = find_multiple(t + max_new_tokens, 128)
+    quantize_kv = cache_dtype == torch.int8
+
+    cond_combined = build_cfg_batch(model, cond, use_cfg)
+    if quantize_kv:
+        # prefill into a small exact staging cache, then quantise it and
+        # seed the tail from its exact rows
+        cache = gpt.init_cache(cfg, batch_cfg, find_multiple(t + TAIL, 8),
+                               compute_dtype, dev)
+    else:
+        cache = gpt.init_cache(cfg, batch_cfg, max_seq, cache_dtype, dev)
+    logits = gpt.prefill(model, cond_combined, cache, compute_dtype)
+    if quantize_kv:
+        stage = cache
+        cache = gpt.quantize_cache(stage, cfg, max_seq)
+        base = t // TAIL * TAIL
+        cache.tail = [ckv[:, base:base + TAIL].clone() for ckv in stage.kv]
+
+    use_pen = (presence_penalty != 0.0 or frequency_penalty != 0.0
+               or repetition_penalty != 1.0)
+    counts = (torch.zeros(cond.shape[0], cfg.vocab_size, dtype=torch.int32,
+                          device=dev) if use_pen else None)
+    sample_kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                     sample_logits=sample_logits)
+
+    def next_token(logits, enabled=True):
+        if use_cfg:
+            logits = sampling.cfg_mix(logits, cfg_scale, enabled=enabled)
+        if use_pen:  # after the CFG mix, as in the reference sampler
+            logits = sampling.apply_penalties(
+                logits, counts, presence=presence_penalty,
+                frequency=frequency_penalty, repetition=repetition_penalty)
+        tok = sampling.sample(logits, generator, **sample_kw)
+        if use_pen:
+            sampling.update_output_counts(counts, tok)
+        return tok
+
+    tokens = [next_token(logits)]
+    for i in range(max_new_tokens - 1):
+        cur = tokens[-1]
+        inp = torch.cat([cur, cur]) if use_cfg else cur
+        logits = gpt.decode_step(model, inp, t + i, cache,
+                                 compute_dtype=compute_dtype)
+        tokens.append(next_token(
+            logits, enabled=cfg_interval < 0 or i <= cfg_interval))
+    return torch.stack(tokens, dim=1)

@@ -1,0 +1,109 @@
+"""Port sampling (llamagen_tpu_torch.ops.generate / sampling) against the
+JAX package: greedy tokens equal to JAX `generate(use_kernel=True)` over
+144 tokens (crossing the 128-row boundary of 4ab3b8d) at f32, the top-k /
+top-p filters exactly, and the sampler's distribution by a chi-square test.
+"""
+
+import numpy as np
+import pytest
+
+import conftest  # noqa: F401
+
+import jax
+import jax.numpy as jnp
+import torch
+from scipy import stats
+
+from llamagen_tpu.ops import sampling as jsampling
+from llamagen_tpu.ops.generate import generate as jgenerate
+from llamagen_tpu.ops.quant_matmul import quantize_gpt_params as jquantize
+from llamagen_tpu_torch.ops import sampling
+from llamagen_tpu_torch.ops.generate import generate
+from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+from test_torch_gpt import NANO, make_pair
+from test_torch_gpt import one_torch_thread  # noqa: F401  (autouse)
+
+LABELS = np.array([3, 7])
+
+
+def _both(params, model, **kw):
+    kw = dict(max_new_tokens=NANO.block_size, sample_logits=False, **kw)
+    jtok = jgenerate(params, jax.random.PRNGKey(0), jnp.asarray(LABELS),
+                     cfg=NANO, use_kernel=True, compute_dtype=jnp.float32,
+                     cache_dtype=jnp.int8 if kw.get("int8") else jnp.float32,
+                     **{k: v for k, v in kw.items() if k != "int8"})
+    tok = generate(model, torch.tensor(LABELS), compute_dtype=torch.float32,
+                   cache_dtype=torch.int8 if kw.get("int8") else torch.float32,
+                   **{k: v for k, v in kw.items() if k != "int8"})
+    return tok.numpy(), np.asarray(jtok)
+
+
+@pytest.mark.parametrize("kw", [dict(cfg_scale=2.0), dict(cfg_scale=1.0),
+                                dict(cfg_scale=2.0, cfg_interval=50)],
+                         ids=["cfg", "no_cfg", "cfg_interval"])
+def test_greedy_tokens_match_jax(kw):
+    params, model = make_pair(NANO)
+    tok, jtok = _both(params, model, **kw)
+    assert tok.shape == (2, 144)
+    np.testing.assert_array_equal(tok, jtok)
+
+
+def test_greedy_tokens_match_jax_w8a16_int8_kv():
+    params, model = make_pair(NANO)
+    tok, jtok = _both(jquantize(params), quantize_gpt_params(model),
+                      cfg_scale=2.0, int8=True)
+    np.testing.assert_array_equal(tok, jtok)
+
+
+def test_penalties_match_jax():
+    rng = np.random.RandomState(2)
+    logits = rng.randn(3, 50).astype(np.float32)
+    counts = rng.randint(0, 3, size=(3, 50)).astype(np.int32)
+    kw = dict(presence=0.3, frequency=0.2, repetition=1.3)
+    out = sampling.apply_penalties(torch.tensor(logits), torch.tensor(counts),
+                                   **kw)
+    ref = jsampling.apply_penalties(jnp.asarray(logits), jnp.asarray(counts),
+                                    **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    c = sampling.update_output_counts(torch.tensor(counts),
+                                      torch.tensor([0, 5, 49]))
+    jc = jsampling.update_output_counts(jnp.asarray(counts),
+                                        jnp.asarray([0, 5, 49]))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("top_k,top_p", [(5, 1.0), (0, 0.7), (40, 0.9),
+                                         (1, 0.5)])
+def test_filters_match_jax_exactly(top_k, top_p):
+    rng = np.random.RandomState(top_k)
+    logits = (rng.randn(4, 1000) * 2).astype(np.float32)
+    logits[0, :3] = logits[0, 3]  # ties at a threshold are kept
+    out = sampling.filter_logits(torch.tensor(logits), top_k, top_p)
+    ref = jsampling.filter_logits(jnp.asarray(logits), top_k, top_p)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_cfg_mix_matches_jax():
+    rng = np.random.RandomState(4)
+    logits = rng.randn(4, 64).astype(np.float32)
+    for enabled in (True, False):
+        out = sampling.cfg_mix(torch.tensor(logits), 2.5, enabled=enabled)
+        ref = jsampling.cfg_mix(jnp.asarray(logits), 2.5, enabled=enabled)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_sample_distribution_chi_square():
+    """Draws follow softmax(logits / T) restricted to the top-k set."""
+    logits = torch.tensor([[1.0, 0.5, 0.0, -0.5, -1.0, 2.0, -3.0, 0.2]])
+    n = 40000
+    gen = torch.Generator().manual_seed(0)
+    draws = sampling.sample(logits.expand(n, -1), gen, temperature=0.8,
+                            top_k=6)
+    counts = np.bincount(draws.numpy(), minlength=8)
+    kept = torch.topk(logits[0], 6).indices.numpy()
+    assert counts[np.setdiff1d(np.arange(8), kept)].sum() == 0
+    p = torch.softmax(logits[0, kept].double() / 0.8, dim=0).numpy()
+    _, pval = stats.chisquare(counts[kept], p * n)
+    assert pval > 1e-3, pval
+    greedy = sampling.sample(logits, sample_logits=False)
+    assert greedy.item() == 5
