@@ -1,0 +1,223 @@
+"""Class-conditional GPT training CLI (PyTorch port, one device).
+
+Same flags and flow as `llamagen_tpu/cli/train_c2i.py`, plus `--device`:
+synthetic, packed-shard, reference-npy (repacked once) or raw-shard (the
+threaded native loader) inputs; `metrics.jsonl`; periodic and final
+checkpoints; resume. Only one device: `--dp`, `--fsdp` and `--tp` other than
+1 raise `NotImplementedError`.
+
+  python -m llamagen_tpu_torch.cli.train_c2i --code-path /data/codes \
+      --gpt-model GPT-L --image-size 384 --global-batch-size 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from llamagen_tpu.data.codes import (NpyCodeDataset, PackedCodeDataset,
+                                     SyntheticCodeDataset, pack_shards)
+from llamagen_tpu.utils.metrics import MetricsLogger
+from llamagen_tpu_torch.cli.common import get_device
+from llamagen_tpu_torch.config import gpt_config
+from llamagen_tpu_torch.train import c2i
+from llamagen_tpu_torch.utils import checkpoint
+from llamagen_tpu_torch.utils.logger import (create_experiment_dir,
+                                             create_logger)
+
+
+def _has(path, suffixes) -> bool:
+    return bool(path) and os.path.isdir(path) and any(
+        f.endswith(suffixes) for f in os.listdir(path))
+
+
+def _save_trace(prof, profile_dir: str) -> None:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--code-path", default=None,
+                   help="packed shard dir, or reference-layout code dir")
+    p.add_argument("--label-path", default=None,
+                   help="labels dir for reference npy layout")
+    p.add_argument("--synthetic-steps", type=int, default=0,
+                   help="train on synthetic data for N steps (smoke mode)")
+    p.add_argument("--gpt-model", default="GPT-B")
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--downsample-size", type=int, default=16)
+    p.add_argument("--class-dropout-prob", type=float, default=0.1)
+    p.add_argument("--dropout-p", type=float, default=0.1,
+                   help="resid/ffn dropout")
+    p.add_argument("--token-dropout-p", type=float, default=0.1)
+    p.add_argument("--drop-path-rate", type=float, default=0.0,
+                   help="stochastic depth; >0 zeroes dropout-p")
+    p.add_argument("--global-batch-size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight-decay", type=float, default=5e-2)
+    p.add_argument("--beta1", type=float, default=0.9)
+    p.add_argument("--beta2", type=float, default=0.95)
+    p.add_argument("--max-grad-norm", type=float, default=1.0)
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--max-steps", type=int, default=-1)
+    p.add_argument("--no-ema", action="store_true")
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--fsdp", type=int, default=-1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--ckpt-every", type=int, default=5000)
+    p.add_argument("--results-dir", default="results")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint dir to resume from (its newest step)")
+    p.add_argument("--exp-auto", action="store_true",
+                   help="create an auto-numbered {index:03d}-{model} "
+                        "experiment subdir")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of steps 2..4 here")
+    p.add_argument("--memory-analysis", action="store_true",
+                   help="log the device's peak memory after the first step")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror metrics.jsonl to wandb when importable")
+    p.add_argument("--remat", default="full",
+                   choices=["full", "save_attn", "none"],
+                   help="rematerialization policy: full layer remat "
+                        "(default), save_attn (selective: save each layer's "
+                        "attention output, recompute the rest), or none")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    if args.dp != 1 or args.fsdp not in (-1, 1) or args.tp != 1:
+        raise NotImplementedError(
+            "multi-GPU training (DDP / FSDP2 / tensor parallel) is not "
+            "ported yet (ROADMAP.md, slice 3)")
+    device = get_device(args.device)
+    latent = args.image_size // args.downsample_size
+    # drop-path replaces resid/ffn dropout (ref train_c2i.py:97-100)
+    dropout_p = 0.0 if args.drop_path_rate > 0.0 else args.dropout_p
+    cfg = gpt_config(args.gpt_model, block_size=latent * latent,
+                     cls_token_num=1,
+                     class_dropout_prob=args.class_dropout_prob,
+                     resid_dropout_p=dropout_p, ffn_dropout_p=dropout_p,
+                     token_dropout_p=args.token_dropout_p,
+                     drop_path_rate=args.drop_path_rate)
+
+    if args.exp_auto:
+        args.results_dir = create_experiment_dir(args.results_dir,
+                                                 args.gpt_model)
+    os.makedirs(args.results_dir, exist_ok=True)
+    logger = create_logger(args.results_dir)
+    logger.info(f"device {device}; model {args.gpt_model} "
+                f"({latent}x{latent} tokens)")
+    mlog = MetricsLogger(args.results_dir, use_wandb=args.wandb,
+                         config=vars(args))
+
+    state, step_fn = c2i.build_trainer(
+        cfg, device, lr=args.lr, weight_decay=args.weight_decay,
+        beta1=args.beta1, beta2=args.beta2,
+        max_grad_norm=args.max_grad_norm, warmup_steps=args.warmup_steps,
+        use_ema=not args.no_ema, seed=args.seed,
+        remat=False if args.remat == "none" else args.remat)
+
+    start_step = 0
+    if args.resume:
+        step, restored = checkpoint.restore_latest(args.resume, state)
+        if restored is not None:
+            start_step = step
+            logger.info(f"resumed from step {start_step}")
+
+    host_batch = args.global_batch_size
+    it = None
+    if args.synthetic_steps > 0:
+        ds = SyntheticCodeDataset(args.global_batch_size * 4,
+                                  cfg.block_size, cfg.vocab_size,
+                                  cfg.num_classes, seed=args.seed)
+        max_steps = args.synthetic_steps
+    elif _has(args.code_path, ".codes"):
+        # raw shards -> threaded C++ loader (preferred input path)
+        from llamagen_tpu.data.native import NativeCodeLoader
+        it = NativeCodeLoader(args.code_path, host_batch, seed=args.seed)
+        # the loader reshuffles forever: --epochs becomes a step bound
+        max_steps = args.max_steps
+        if max_steps <= 0 and args.epochs > 0:
+            max_steps = args.epochs * max(it.num_samples // host_batch, 1)
+    elif _has(args.code_path, (".npz", ".codes.npy")):
+        ds = PackedCodeDataset(args.code_path)
+        max_steps = args.max_steps
+    elif args.code_path:
+        # reference {i}.npy micro-file layout: repack once (cached next to
+        # the source dir), then memmap the packed shards
+        packed = args.code_path.rstrip("/") + "_packed"
+        src = NpyCodeDataset(args.code_path,
+                             args.label_path or args.code_path)
+        if not _has(packed, ".codes.npy"):
+            logger.info(f"repacking {len(src)} npy micro-files -> {packed}")
+            pack_shards(src, packed)
+        ds = PackedCodeDataset(packed)
+        max_steps = args.max_steps
+    else:
+        raise SystemExit("need --code-path or --synthetic-steps")
+
+    if it is None:
+        it = ds.batches(host_batch, seed=args.seed, epochs=args.epochs)
+    t0, last_log = time.time(), start_step
+    running_loss = 0.0
+    step = start_step
+    prof = None
+    ckpt_dir = os.path.join(args.results_dir, "checkpoints")
+    for codes, labels in it:
+        if max_steps > 0 and step >= max_steps:
+            break
+        batch = c2i.Batch(
+            labels=torch.from_numpy(np.asarray(labels, np.int64)).to(device),
+            tokens=torch.from_numpy(np.asarray(codes, np.int64)).to(device))
+        if args.profile_dir and step == start_step + 2 and prof is None:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                *([torch.profiler.ProfilerActivity.CUDA]
+                  if device.type == "cuda" else [])])
+            prof.start()
+            logger.info(f"profiler trace -> {args.profile_dir}")
+        state, metrics = step_fn(state, batch, args.seed)
+        step += 1
+        if prof is not None and step == start_step + 5:
+            _save_trace(prof, args.profile_dir)
+            prof = False
+        if args.memory_analysis and step == start_step + 1 \
+                and device.type == "cuda":
+            logger.info(f"peak device memory after the first step: "
+                        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+                        f" GiB")
+        running_loss += float(metrics["loss"])  # waits for the step
+        if step % args.log_every == 0:
+            dt = time.time() - t0
+            sps = (step - last_log) / dt
+            avg_loss = running_loss / (step - last_log)
+            logger.info(f"step {step}: loss {avg_loss:.4f} "
+                        f"({sps:.2f} steps/s, "
+                        f"{sps * args.global_batch_size:.0f} samples/s)")
+            mlog.log(step, {"loss": avg_loss, "steps_per_sec": sps,
+                            "samples_per_sec": sps * args.global_batch_size,
+                            "grad_norm": float(metrics["grad_norm"])})
+            running_loss, t0, last_log = 0.0, time.time(), step
+        if step % args.ckpt_every == 0:
+            path = checkpoint.save_step(ckpt_dir, step, state)
+            logger.info(f"saved checkpoint {path}")
+
+    if prof:  # the run ended inside the profiled steps
+        _save_trace(prof, args.profile_dir)
+    path = checkpoint.save_step(ckpt_dir, step, state)
+    logger.info(f"done at step {step}; final checkpoint {path}")
+    mlog.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()

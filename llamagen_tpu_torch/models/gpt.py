@@ -1,5 +1,5 @@
-"""Llama-style autoregressive transformer over VQ code grids: the inference
-half, in PyTorch.
+"""Llama-style autoregressive transformer over VQ code grids, in PyTorch:
+inference (prefill, decode) and the training forward.
 
 Counterpart of `llamagen_tpu/models/gpt.py`. The module tree uses the
 upstream LlamaGen state-dict keys (`tok_embeddings.weight`,
@@ -11,23 +11,33 @@ The KV cache is the JAX one (not the `{'k','v'}` layout of that module's
 docstring): per layer one `[B, S, 2 * F_kv]` buffer, k in lanes
 `[0, F_kv)`, v in `[F_kv, 2 * F_kv)`; int8 caches add per-row k/v scales and
 a 32-row exact tail (`ops/attention.py`). The cache is updated in place.
+
+`forward_train` is the teacher-forced full-sequence forward of training.
+Its attention runs the training-attention kernel (`ops/train_attention.py`)
+unless attention-probability dropout is on; dropout masks come from
+per-layer seeds drawn before the layer loop, so a layer recomputed under
+`torch.utils.checkpoint` draws the same masks.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from llamagen_tpu_torch.config import GPTConfig
 from llamagen_tpu_torch.ops.attention import (TAIL, batch_positions,
                                               decode_attention, quantize_rows)
 from llamagen_tpu_torch.ops.quant_matmul import matmul_any, quantize_weight
+from llamagen_tpu_torch.ops.train_attention import (TRAIN_ATTENTION_OP,
+                                                    causal_attention_padded)
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +193,20 @@ class Transformer(nn.Module):
                              torch.tensor(freqs, device=device),
                              persistent=False)
 
-    def embed_condition(self, labels: torch.Tensor) -> torch.Tensor:
-        """Class labels [B] -> condition embeddings [B, 1, dim]."""
-        return self.cls_embedding.embedding_table.weight[labels][:, None, :]
+    def embed_condition(self, labels: torch.Tensor,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Class labels [B] -> condition embeddings [B, 1, dim]. With a
+        `generator` (training) each label is replaced by the null class
+        `num_classes` with probability `class_dropout_prob` (CFG dropout,
+        JAX `embed_condition`)."""
+        p = self.cfg.class_dropout_prob
+        if generator is not None and p > 0:
+            drop = torch.rand(labels.shape, generator=generator,
+                              device=labels.device) < p
+            labels = torch.where(drop, self.cfg.num_classes, labels)
+        return F.embedding(labels, self.cls_embedding.embedding_table.weight
+                           )[:, None, :]
 
 
 @torch.no_grad()
@@ -283,16 +304,29 @@ def decode_stack(model: Transformer, h: torch.Tensor,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor) -> torch.Tensor:
+          mask: torch.Tensor, bf16_scores: bool = False,
+          dropout_p: float = 0.0,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> [B,Sq,H*D]: f32 scores and
-    softmax, probabilities cast back to q's dtype (JAX `_sdpa`)."""
+    softmax, probabilities cast back to q's dtype (JAX `_sdpa`).
+
+    bf16_scores (the training path under bf16 compute): the scores are
+    formed and masked in bf16 and upcast for the softmax. dropout_p with a
+    generator: attention-probability dropout on the cast probabilities."""
     rep = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
     v = v.repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * q.shape[-1] ** -0.5
-    scores = scores.masked_fill(~mask, -1e30)
+    scale = q.shape[-1] ** -0.5
+    if bf16_scores and q.dtype == torch.bfloat16:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        scores = scores.masked_fill(~mask, -3e38).float()
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+            * scale
+        scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if generator is not None and dropout_p > 0:
+        probs = _dropout(probs, dropout_p, generator)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return out.reshape(*q.shape[:2], -1)
 
@@ -353,3 +387,164 @@ def decode_step(model: Transformer, token: torch.Tensor, pos: int,
             tail=cache.tail[l] if cache.quantized else None)
 
     return decode_stack(model, h, attend)
+
+
+# ---------------------------------------------------------------------------
+# Training forward (JAX gpt.py:214-504)
+# ---------------------------------------------------------------------------
+
+
+Remat = Union[bool, str]  # False, "full" or "save_attn"
+
+
+def _save_attention(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """remat "save_attn": keep each layer's training-attention output (and
+    its log-sum-exp) and recompute everything else, so the recompute does
+    not run the attention forward again (JAX's "attn_core" policy). The
+    plain attention of CPU tensors and the attention-dropout path are not
+    this operator: there everything is recomputed, as under "full"."""
+    return (CheckpointPolicy.MUST_SAVE if op is TRAIN_ATTENTION_OP
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dropout(x: torch.Tensor, p: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Keep each element with probability 1 - p, scaled by 1 / (1 - p)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def _drop_path(x: torch.Tensor, rate: float,
+               generator: torch.Generator) -> torch.Tensor:
+    """Per-sample stochastic depth: keep a whole batch row with
+    probability 1 - rate, scaled by 1 / (1 - rate)."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _layer_generator(seed: Optional[int],
+                     device: torch.device) -> Optional[torch.Generator]:
+    """A fresh generator from a seed drawn OUTSIDE the checkpointed layer:
+    `torch.utils.checkpoint` restores only the default RNG states, so a
+    recomputed layer must reseed its own generator to draw the same
+    masks."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _train_attention(attn: Attention, x: torch.Tensor, freqs: torch.Tensor,
+                     cfg: GPTConfig,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Full-sequence causal attention + wo. The training-attention kernel
+    unless attention-probability dropout is on (JAX gpt.py:284-307)."""
+    b, s, _ = x.shape
+    q, k, v = split_heads(attn.wqkv(x), cfg.n_head, cfg.kv_heads,
+                          cfg.head_dim)
+    v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)  # a view: row stride 3F
+    q, k = rope_heads(q, freqs), rope_heads(k, freqs)
+    if generator is not None and cfg.attn_dropout_p > 0:
+        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+        out = _sdpa(q, k, v, causal, bf16_scores=True,
+                    dropout_p=cfg.attn_dropout_p, generator=generator)
+    else:
+        rep = cfg.n_head // cfg.kv_heads
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = causal_attention_padded(q, k, v, cfg.head_dim ** -0.5) \
+            .reshape(b, s, -1)
+    return attn.wo(out)
+
+
+def _train_block(layer: TransformerBlock, h: torch.Tensor,
+                 freqs: torch.Tensor, cfg: GPTConfig, seed: Optional[int],
+                 drop_path_rate: Optional[float]) -> torch.Tensor:
+    """One layer (JAX `_block`): attention and SwiGLU with resid/ffn
+    dropout and drop-path drawn from the layer's own seed."""
+    gen = _layer_generator(seed, h.device)
+    attn = _train_attention(layer.attention, layer.attention_norm(h), freqs,
+                            cfg, gen)
+    if gen is not None:
+        if cfg.resid_dropout_p > 0:
+            attn = _dropout(attn, cfg.resid_dropout_p, gen)
+        if drop_path_rate is not None:
+            attn = _drop_path(attn, drop_path_rate, gen)
+    h = h + attn
+    ffn = layer.feed_forward(layer.ffn_norm(h))
+    if gen is not None:
+        if cfg.ffn_dropout_p > 0:
+            ffn = _dropout(ffn, cfg.ffn_dropout_p, gen)
+        if drop_path_rate is not None:
+            ffn = _drop_path(ffn, drop_path_rate, gen)
+    return h + ffn
+
+
+def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
+                  targets: Optional[torch.Tensor] = None,
+                  valid: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = True,
+                  compute_dtype: torch.dtype = torch.float32,
+                  remat: Remat = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Teacher-forced full-sequence forward (JAX `gpt.forward_train`).
+
+    cond: [B] class labels; idx: [B, L] token ids (callers pass
+    tokens[:, :-1]); targets: [B, block_size] ids for the CE loss; valid:
+    optional [B] sample weights. Returns (logits [B, S, V] f32 from the
+    last condition position on, loss or None).
+
+    Dropout (class, token, resid/ffn, drop-path, attention) runs when
+    `train` and a `generator` is given: the generator (any device) draws
+    one seed for the condition, the tokens and each layer, and the masks
+    are drawn on the activations' device from generators seeded with them.
+    remat: False; "full" to recompute each layer in the backward
+    (`torch.utils.checkpoint`); or "save_attn" to recompute all but the
+    attention kernel's output (`_save_attention`).
+    """
+    cfg = model.cfg
+    if remat not in (False, "full", "save_attn"):
+        raise ValueError(f"unknown remat {remat!r}")
+    ckpt = {}
+    if remat == "save_attn":
+        ckpt["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_attention)
+    seeds: List[Optional[int]] = [None] * (cfg.n_layer + 2)
+    if train and generator is not None:
+        seeds = torch.randint(0, 2 ** 62, (cfg.n_layer + 2,),
+                              generator=generator,
+                              device=generator.device).tolist()
+    dev = idx.device
+    cond_emb = model.embed_condition(cond, _layer_generator(seeds[0], dev))
+    tok_emb = F.embedding(idx, model.tok_embeddings.weight)
+    h = torch.cat([cond_emb, tok_emb], dim=1).to(compute_dtype)
+    if seeds[1] is not None and cfg.token_dropout_p > 0:
+        h = _dropout(h, cfg.token_dropout_p, _layer_generator(seeds[1], dev))
+
+    freqs = model.freqs_cis[:h.shape[1]]
+    rates = [None] * cfg.n_layer
+    if seeds[2] is not None and cfg.drop_path_rate > 0:
+        rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.n_layer).tolist()
+    for layer, seed, rate in zip(model.layers, seeds[2:], rates):
+        if remat:
+            h = checkpoint(_train_block, layer, h, freqs, cfg, seed, rate,
+                           use_reentrant=False, **ckpt)
+        else:
+            h = _train_block(layer, h, freqs, cfg, seed, rate)
+    logits = model.output(model.norm(h)).float()
+    # predictions for grid tokens start at the last condition position
+    logits = logits[:, cfg.cls_token_num - 1:]
+
+    loss = None
+    if targets is not None:
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              targets.reshape(-1).long(), reduction="none") \
+            .reshape(targets.shape)
+        if valid is not None:
+            w = valid[:, None].float().expand_as(nll)
+            loss = (nll * w).sum() / w.sum().clamp_min(1.0)
+        else:
+            loss = nll.mean()
+    return logits, loss

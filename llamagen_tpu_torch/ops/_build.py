@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every `llamagen_tpu_torch/csrc/*.cu` file is compiled by `nvcc` into ONE
-shared library with a plain C interface, at first use, into `.build/` at
-the repository root (git-ignored). The library's name carries a hash of
+Every `llamagen_tpu_torch/csrc/*.cu` file is compiled by `nvcc` (one
+process per file, in parallel) and linked into ONE shared library with a
+plain C interface, at first use, into `.build/` at the repository root
+(git-ignored). The library's name carries a hash of
 the sources, so an edited source builds anew and a stale library is never
 loaded. The library is bound with `ctypes`: each C entry point takes raw
 device pointers and the CUDA stream as `void*` and returns `cudaError_t`.
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources() -> list[Path]:
@@ -52,23 +53,42 @@ def _find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists."""
+    """Compile the sources unless the library for their hash exists.
+
+    Each `.cu` file is compiled to an object by its own `nvcc`, all started
+    together, then the objects are linked into the library. The compilers'
+    output (`-Xptxas -v`: registers, shared memory and spills per kernel)
+    is kept beside the library as `<name>.log`.
+    """
     out = BUILD_DIR / f"libllamagen_kernels_{_source_hash(_sources())}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    # compile to a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    nvcc = _find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, jobs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            objs.append(str(Path(tmp) / f"{src.stem}.o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compiler before raising: none is left running
+        logs = [(proc, f"$ {' '.join(cmd)}\n{proc.communicate()[0]}")
+                for cmd, proc in jobs]
+        for proc, text in logs:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+        # link under a temporary name and rename: a concurrent or
+        # interrupted build never leaves a half-written library in place
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        out.with_suffix(".log").write_text("\n".join(t for _, t in logs))
+        os.replace(lib, out)
     return out
 
 

@@ -53,8 +53,18 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
     logits = filter_logits(logits, top_k=top_k, top_p=top_p)
     if not sample_logits:
         return logits.argmax(dim=-1)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    return (logits - torch.log(-torch.log(u))).argmax(dim=-1)
+    return (logits + gumbel(logits.shape, generator, logits.device)) \
+        .argmax(dim=-1)
+
+
+def gumbel(shape, generator: Optional[torch.Generator],
+           device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), f32, with u in [tiny, 1) as JAX
+    draws it (`jax.random.gumbel`): `torch.rand` is in [0, 1), and u = 0
+    would give -inf, a token that could never be drawn."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_min_(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def cfg_mix(logits: torch.Tensor, cfg_scale: float,

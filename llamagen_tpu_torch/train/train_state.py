@@ -1,0 +1,118 @@
+"""Optimizer and train state of the GPT trainer (PyTorch port).
+
+Counterpart of `llamagen_tpu/train/train_state.py`, with optax's semantics:
+`optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule, b1, b2,
+weight_decay, mask=decay_mask))`.
+
+- The clip scales every gradient by `max_norm / norm` only when the global
+  norm is at least `max_norm`, as `(g / norm) * max_norm`; it adds no
+  `1e-6` as `torch.nn.utils.clip_grad_norm_` does, so it is written out.
+- AdamW (`torch.optim.AdamW`, two parameter groups) decays only the names
+  `decay_mask` admits: not norms, scales or biases; embeddings and the head
+  decay. Decay is decoupled and scaled by the learning rate, as in optax.
+- With `warmup_steps > 0` the learning rate is `optax.linear_schedule(0,
+  lr, warmup_steps)` of the number of earlier updates, so the first update
+  has learning rate 0.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+
+def decay_mask(name: str) -> bool:
+    """True where weight decay applies (JAX `_no_decay` on the same
+    names: upstream keys such as `layers.0.attention_norm.weight`)."""
+    return not ("norm" in name or "scale" in name or name.endswith("bias"))
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (f32, on the device)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+class Optimizer:
+    """Global-norm clip + AdamW with a linear warmup over a module's
+    parameters; `step(count)` updates them in place from their `.grad`."""
+
+    def __init__(self, model: nn.Module, lr: float = 1e-4,
+                 weight_decay: float = 5e-2, beta1: float = 0.9,
+                 beta2: float = 0.95, max_grad_norm: float = 1.0,
+                 warmup_steps: int = 0):
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self.params = [p for _, p in named]
+        self.lr, self.warmup_steps = lr, warmup_steps
+        self.max_grad_norm = max_grad_norm
+        self.opt = torch.optim.AdamW(
+            [{"params": [p for n, p in named if decay_mask(n)],
+              "weight_decay": weight_decay},
+             {"params": [p for n, p in named if not decay_mask(n)],
+              "weight_decay": 0.0}],
+            lr=lr, betas=(beta1, beta2), eps=1e-8)
+
+    def lr_at(self, count: int) -> float:
+        """The learning rate of the update after `count` earlier ones."""
+        if self.warmup_steps <= 0:
+            return self.lr
+        return self.lr * min(count, self.warmup_steps) / self.warmup_steps
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self, count: int) -> torch.Tensor:
+        """Clip the gradients, then one AdamW update; returns the global
+        norm of the gradients before the clip."""
+        for p in self.params:  # optax updates every leaf, unused ones too
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        keep = norm < self.max_grad_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * self.max_grad_norm))
+        for group in self.opt.param_groups:
+            group["lr"] = self.lr_at(count)
+        self.opt.step()
+        return norm
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.opt.load_state_dict(state)
+
+
+@dataclass
+class TrainState:
+    """The model (f32 master weights), its optimizer, the EMA copy of the
+    parameters (by name) and the number of updates taken."""
+
+    step: int
+    model: nn.Module
+    optimizer: Optimizer
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+
+def init_train_state(model: nn.Module, optimizer: Optimizer,
+                     use_ema: bool = False) -> TrainState:
+    ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+           if use_ema else None)
+    return TrainState(step=0, model=model, optimizer=optimizer, ema=ema)
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module,
+               decay: float = 0.9999) -> None:
+    """Polyak averaging in place: e = e * decay + p * (1 - decay)."""
+    names = list(ema)
+    params = dict(model.named_parameters())
+    e = [ema[n] for n in names]
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, [params[n].to(ema[n].dtype) for n in names],
+                        alpha=1.0 - decay)
