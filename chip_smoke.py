@@ -9,9 +9,11 @@ Phases, each of which raises on a failed check (exit code != 0):
    path's shapes: decode attention (K1) with bf16 and int8 caches, per-row
    positions, prefix padding and GQA; the W8A16 matmul (K2) at the GPT-L
    layer shapes and the int8 head. Each prints its max error beside its
-   tolerance and its median time beside the plain version's (CUDA graphs
-   of one call per layer, so the 24 layers' buffers stream from memory as
-   they do in a step).
+   tolerance and its median time beside the plain version's, its bound
+   (bytes over 3.35 TB/s or flops over 989 TFLOP/s, from this run's
+   inputs) and a PyTorch library call on the same inputs where one exists
+   (CUDA graphs of one call per layer, so the 24 layers' buffers stream
+   from memory as they do in a step).
 3. The main path: GPT-L 384 px, random seeded weights with a random head,
    W8A16 + int8 KV cache, batch 8 + CFG 2.0, 576 tokens, then the VQ-16
    decoder to [8, 384, 384, 3]. The kernels' launch counters must read
@@ -19,15 +21,35 @@ Phases, each of which raises on a failed check (exit code != 0):
 4. The CLI (`llamagen_tpu_torch.cli.sample_c2i`) once at GPT-L 384 with
    bf16 weights and cache, from a random checkpoint in a temp directory.
 5. A teacher-forced comparison of kernels against plain versions over 64
-   decode steps at GPT-L.
-6. The training-attention kernels (K4: forward, dq, dk/dv) against their
+   decode steps at GPT-L: bf16, W8A16 + int8 KV, and grouped W4 + bf16 KV.
+6. The W4A16 matmul (K3) against its plain version at every GPT-L layer
+   shape, per channel and grouped g128, B 16 and 80, bf16 x; f32 x and a
+   ragged group (K = 320); times beside the plain version, the bound and
+   `torch._weight_int4pack_mm` (tinygemm) where this torch runs it.
+7. Chunk attention (K5) against its plain version: C 1 and 5, bf16 and f32
+   caches, per-row positions with 0, 7, 8 and 639 - C, GQA rep 2 and 4,
+   prefix padding, a backward position jump across two calls; times
+   beside the plain version, the bound and SDPA with the same row mask.
+8. The W4 sampling path: GPT-L 384, grouped W4 + bf16 KV, batch 8 + CFG
+   2.0, 576 tokens, VQ-16 decode; counters exactly 5 * 24 * 575 (K3:
+   prefill takes the dequantised fallback) and 24 * 575 (K1). (Phase 5
+   teacher-forces the W4 model too, with K1 + K3 and with their plain
+   versions.)
+9. The speculative path: bf16 GPT-L target, a W4 copy of it drafting
+   (self-speculation), k = 4, batch 8 + CFG 4.0, sampled, 576 tokens;
+   counters exactly 24 * (k + 2) * rounds (K5) and 5 * 24 * (k + 1) *
+   rounds (K3). Then the same through the CLIs (`tools quantize-ckpt
+   --mode w4` writes the draft checkpoint, `sample_c2i
+   --draft-gpt-model`), and a greedy f32 check: 64 tokens of
+   `generate_speculative` equal `generate`'s for the same target.
+10. The training-attention kernels (K4: forward, dq, dk/dv) against their
    plain version (dense f32 scores, autograd) on the card: the GPT-L
    training shape [32, 576, 16, 64] bf16 (v a strided view, as the model
    gives it), [2, 577, 8, 128] f32 and bf16, head_dim 100 (padded to 128)
    and a ragged S = 257. Each prints its errors beside its tolerance; the
    GPT-L shape prints forward and forward + backward times beside the
-   plain version's.
-7. The training path: the CLI (`llamagen_tpu_torch.cli.train_c2i`) at
+   plain version's and SDPA's.
+11. The training path: the CLI (`llamagen_tpu_torch.cli.train_c2i`) at
    GPT-L 384, batch 32, N synthetic steps with the default dropouts and
    full remat. The first loss must be ln 16384 (the zeroed head), every
    loss and grad norm finite, `metrics.jsonl` must hold steps 1..N and the
@@ -36,7 +58,7 @@ Phases, each of which raises on a failed check (exit code != 0):
    each backward kernel. Prints step time, samples/s, tokens/s, peak
    memory and model-FLOP utilisation. Then 4 steps with remat "save_attn",
    where K4's forward runs once per layer and step.
-8. One full training step at GPT-L (random head, dropout off) with K4 and
+12. One full training step at GPT-L (random head, dropout off) with K4 and
    with its plain version on the same weights and batch, in bf16 and in
    f32 compute: the loss difference and each parameter's relative
    gradient difference against stated bounds.
@@ -44,7 +66,9 @@ Phases, each of which raises on a failed check (exit code != 0):
 Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
 last line is `{"ok": true, "device": {...}}`; the line before it is the
-kernels' JSON record. Needs a CUDA device; runs nothing without one.
+kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
+library time), the one before that the card's name and power limit.
+Needs a CUDA device; runs nothing without one.
 """
 
 import json
@@ -57,10 +81,13 @@ import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
 
 BATCH, CFG_SCALE, TOKENS = 8, 2.0, 576
 TRAIN_BATCH, TRAIN_STEPS = 32, 10
 H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
+H100_BYTES_PER_S = 3.35e12  # HBM3, the same data sheet
+SPEC_K, SPEC_CFG = 4, 4.0  # the sampling CLI's default --spec-k, --cfg-scale
 GPT_L_MATMULS = {"wqkv": (1024, 3072), "wo": (1024, 1024),
                  "w1": (1024, 2816), "w3": (1024, 2816), "w2": (2816, 1024)}
 
@@ -93,6 +120,32 @@ def graph_ms(calls, reps=5):
 
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over 3.35 TB/s and the operations over 989
+    TFLOP/s (bf16 dense; H100 SXM data sheet, 700 W)."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def library_time(label, fn):
+    """Median ms of one PyTorch library call (the yardstick, used nowhere in
+    the port), or None, with the reason printed, where the installed torch
+    does not run it on this card."""
+    try:
+        return fn()
+    except (RuntimeError, AttributeError, NotImplementedError, TypeError,
+            ValueError) as e:
+        log(f"{label}: not available here ({type(e).__name__}: "
+            f"{str(e).splitlines()[0][:160]})")
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +227,35 @@ def check_decode_attention(dev):
                        for st in states])
         plain = graph_ms([lambda st=st: decode_attention_ref(
             st[0], st[1], st[2], pos, h, **st[3]) for st in states])
-        timings[cache] = (ms, plain)
+        # bytes one call must move: q, kv_new and out, the rows [0, pos]
+        # (int8: rows below bnd = pos - pos % 32 int8 with their bf16
+        # scales, rows [bnd, pos] from the bf16 tail)
+        q, kv_new, kv, extra = states[0]
+        row = kv.shape[2]
+        bnd = pos - pos % 32 if cache == "int8" else pos + 1
+        moved = (nbytes(q, kv_new, q) + b * bnd * row * kv.element_size()
+                 + b * (pos + 1 - bnd) * row * 2
+                 + (b * bnd * 4 if cache == "int8" else 0))
+        bnd_ms, by = bound(moved, 4 * b * h * 64 * (pos + 1))
+        lib = None
+        if cache == "bf16":  # SDPA over the cache with a causal row mask
+            f = h * 64
+            qs = [st[0].view(b, h, 1, 64) for st in states]
+            ks = [st[2][..., :f].view(b, s, h, 64).transpose(1, 2)
+                  for st in states]
+            vs = [st[2][..., f:].view(b, s, h, 64).transpose(1, 2)
+                  for st in states]
+            mask = (torch.arange(s, device=dev) <= pos).view(1, 1, 1, s)
+            lib = library_time("K1 library (SDPA)", lambda: graph_ms(
+                [lambda i=i: F.scaled_dot_product_attention(
+                    qs[i], ks[i], vs[i], attn_mask=mask)
+                 for i in range(len(states))]))
+        timings[cache] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
+                              library=lib)
         log(f"K1 time, {cache} cache, B {b}, H {h}, pos {pos}, S {s}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} "
+            f"ms ({by}), SDPA "
+            f"{'n/a (int8 cache)' if lib is None else f'{lib:.4f} ms'}")
     return worst, timings
 
 
@@ -214,10 +293,22 @@ def check_int8_matmul(dev):
         plain = graph_ms([lambda w=w: int8_matmul_ref(x, *w) for w in layers])
         bf16 = graph_ms([lambda w=w: x @ w for w in w_bf16])
         gbs = k * n / (ms * 1e-3) / 1e9
-        timings[name] = (ms, plain)
+        bnd_ms, by = bound(nbytes(layers[0][0], layers[0][1], x)
+                           + 16 * n * 2, 2 * 16 * k * n)
+        # torch's own W8A16 call: int8 weight [N, K], bf16 scales
+        packed = [(wq.t().contiguous(), ws.to(torch.bfloat16))
+                  for wq, ws in layers]
+        lib = library_time(f"K2 library (torch._weight_int8pack_mm) {name}",
+                           lambda: graph_ms(
+                               [lambda w=w: torch._weight_int8pack_mm(x, *w)
+                                for w in packed]))
+        timings[name] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
+                             library=lib)
         log(f"K2 time {name} [16,{k}]x[{k},{n}]: kernel {ms:.4f} ms "
             f"({gbs:.0f} GB/s of int8 weights), plain {plain:.4f} ms, "
-            f"bf16 torch.matmul {bf16:.4f} ms")
+            f"bound {bnd_ms:.4f} ms ({by}), torch._weight_int8pack_mm "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 "
+            f"torch.matmul {bf16:.4f} ms (context)")
     return worst, timings
 
 
@@ -226,12 +317,12 @@ def check_int8_matmul(dev):
 # ---------------------------------------------------------------------------
 
 
-def gpt_l(dev, seed=0):
+def gpt_l(dev, seed=0, dtype=torch.bfloat16):
     from llamagen_tpu_torch.config import gpt_config
     from llamagen_tpu_torch.models import gpt
     cfg = gpt_config("GPT-L", block_size=576, cls_token_num=1)
     model = gpt.init_weights(
-        gpt.Transformer(cfg, device=dev, dtype=torch.bfloat16), seed=seed)
+        gpt.Transformer(cfg, device=dev, dtype=dtype), seed=seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     with torch.no_grad():  # the reference init zeroes the head
         model.output.weight.normal_(0.0, 0.02, generator=g)
@@ -311,30 +402,36 @@ def run_cli(dev):
 
 def run_teacher_forced(dev):
     """Kernels vs plain versions inside the model: same token inputs, 64
-    decode steps, max |logit difference|."""
+    decode steps, max |logit difference|; bf16, W8A16 + int8 KV (K1, K2)
+    and grouped W4 + bf16 KV (K1, K3)."""
     from llamagen_tpu_torch.models import gpt
-    from llamagen_tpu_torch.ops import attention, quant_matmul
-    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.ops import attention, quant_matmul, w4_matmul
     bound = 0.25  # bf16 rounding noise through 24 layers, logits std ~0.6
     g = torch.Generator(device=dev).manual_seed(5)
     toks = torch.randint(0, 16384, (64, 2 * BATCH), generator=g, device=dev)
     labels = torch.arange(2 * BATCH, device=dev) * 61 % 1000
     worst = {}
-    for name, quant, cache_dtype in (("bf16", False, torch.bfloat16),
-                                     ("W8A16 + int8 KV", True, torch.int8)):
+    for name, quantize, cache_dtype in (
+            ("bf16", None, torch.bfloat16),
+            ("W8A16 + int8 KV", quant_matmul.quantize_gpt_params, torch.int8),
+            ("W4 g128 + bf16 KV", w4_matmul.quantize_gpt_params_w4k,
+             torch.bfloat16)):
         model = gpt_l(dev, seed=9)
-        if quant:
-            quantize_gpt_params(model)
+        if quantize is not None:
+            quantize(model)
         runs = []
         for plain in (False, True):
-            saved = (gpt.decode_attention, quant_matmul.int8_matmul)
+            saved = (gpt.decode_attention, quant_matmul.int8_matmul,
+                     quant_matmul.w4_matmul)
             if plain:
                 gpt.decode_attention = attention.decode_attention_ref
                 quant_matmul.int8_matmul = quant_matmul.int8_matmul_ref
+                quant_matmul.w4_matmul = w4_matmul.w4_matmul_ref
             try:
                 runs.append(_forced_logits(model, labels, toks, cache_dtype))
             finally:
-                gpt.decode_attention, quant_matmul.int8_matmul = saved
+                (gpt.decode_attention, quant_matmul.int8_matmul,
+                 quant_matmul.w4_matmul) = saved
         diff = max(max_err(a, b) for a, b in zip(*runs))
         agree = sum((a.argmax(-1) == b.argmax(-1)).float().mean().item()
                     for a, b in zip(*runs)) / len(runs[0])
@@ -367,7 +464,373 @@ def _forced_logits(model, labels, toks, cache_dtype):
 
 
 # ---------------------------------------------------------------------------
-# Phases 6-8: training attention (K4), the training CLI, one step vs plain
+# Phases 6-9: W4 matmul (K3), chunk attention (K5), the W4 sampling path,
+# speculative sampling
+# ---------------------------------------------------------------------------
+
+
+def w4_int4pack(blocks, scales, k):
+    """pack_w4 blocks/scales (grouped, 128-row groups, K/2 a multiple of
+    128) -> the operands of torch._weight_int4pack_mm (tinygemm): levels
+    + 8 as uint4 [N, K] packed two per byte, bf16 (scale, zero = 0) per
+    (K group, column). Its groups are contiguous K rows, which are
+    pack_w4's groups half by half."""
+    from llamagen_tpu_torch.ops.w4_matmul import _levels
+    nb, k2, bn = blocks.shape
+    lv = _levels(blocks).permute(1, 0, 2).reshape(k, nb * bn)  # [K, N]
+    u4 = (lv.t() + 8).to(torch.int32).contiguous()             # [N, K]
+    packed = torch._convert_weight_to_int4pack(
+        (u4[:, ::2] << 4 | u4[:, 1::2]).to(torch.uint8).contiguous(), 8)
+    sc = scales.permute(1, 0, 2).reshape(scales.shape[1], nb * bn)
+    sz = torch.stack([sc, torch.zeros_like(sc)], dim=-1).to(torch.bfloat16)
+    return packed, sz.contiguous()
+
+
+def check_w4_matmul(dev):
+    """K3 against w4_matmul_ref at every GPT-L layer shape, per channel and
+    grouped g128, B 16 (decode, draft) and 80 (a k = 4 verify), bf16 x;
+    plus f32 x and a ragged group (K = 320). Tolerance: one bf16 ulp
+    (2^-7) of the largest output for bf16 x, 1e-5 of it for f32 x (the
+    same f32 products summed in another order)."""
+    from llamagen_tpu_torch.ops.w4_matmul import (pack_w4, w4_dequant,
+                                                  w4_matmul, w4_matmul_ref)
+    g = torch.Generator(device=dev).manual_seed(13)
+    worst = 0.0
+    cases = [(name, k, n, pc, b, torch.bfloat16)
+             for name, (k, n) in GPT_L_MATMULS.items()
+             for pc in (False, True) for b in (16, 80)]
+    cases += [("wqkv", 1024, 3072, False, 16, torch.float32),
+              ("w2", 2816, 1024, True, 80, torch.float32),
+              ("ragged", 320, 256, False, 16, torch.bfloat16),
+              ("ragged", 320, 256, False, 16, torch.float32)]
+    for name, k, n, pc, b, dtype in cases:
+        blocks, scales = pack_w4(torch.randn(k, n, generator=g, device=dev)
+                                 * 0.02, per_channel=pc)
+        x = torch.randn(b, k, generator=g, device=dev).to(dtype)
+        out = w4_matmul(x, blocks, scales)
+        ref = w4_matmul_ref(x, blocks, scales)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+        tol = rel * ref.float().abs().max().item()
+        label = (f"K3 w4_matmul {name} [{b},{k}]x[{k},{n}] "
+                 f"{'per-channel' if pc else 'g128'} {str(dtype)[6:]} x")
+        log(f"{label}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        if not (err <= tol and out.dtype == dtype):
+            raise AssertionError(f"{label} disagrees with the plain version")
+        worst = max(worst, err)
+
+    # times: grouped g128 (the quantize_gpt_params_w4k default), bf16 x,
+    # enough buffer sets per shape (>= 24, >= 128 MB) that the weights
+    # stream from memory, not from the 50 MB L2
+    timings = {}
+    for name, (k, n) in GPT_L_MATMULS.items():
+        sets = max(24, -(-128 * 2 ** 20 // (k * n // 2)))
+        layers = [pack_w4(torch.randn(k, n, generator=g, device=dev) * 0.02)
+                  for _ in range(sets)]
+        for b in (16, 80):
+            x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
+            ms = graph_ms([lambda w=w: w4_matmul(x, *w) for w in layers])
+            plain = graph_ms([lambda w=w: w4_matmul_ref(x, *w)
+                              for w in layers[:24]])
+            bnd_ms, by = bound(nbytes(*layers[0], x) + b * n * 2,
+                               2 * b * k * n)
+            lib = None
+            if b == 16:
+                w_bf16 = [w4_dequant(*w).to(torch.bfloat16)
+                          for w in layers[:24]]
+                bf16 = graph_ms([lambda w=w: x @ w for w in w_bf16])
+                del w_bf16
+
+                def tinygemm():
+                    ops = [w4_int4pack(*w, k) for w in layers]
+                    y = torch._weight_int4pack_mm(x, ops[0][0], 128,
+                                                  ops[0][1])
+                    e = max_err(y, w4_matmul_ref(x, *layers[0]))
+                    log(f"K3 library (tinygemm) {name}: max |difference| "
+                        f"from the plain version {e:.3g} (bf16 scales)")
+                    return graph_ms([lambda o=o: torch._weight_int4pack_mm(
+                        x, o[0], 128, o[1]) for o in ops])
+                lib = library_time(f"K3 library (torch._weight_int4pack_mm)"
+                                   f" {name}", tinygemm)
+            timings[(name, b)] = dict(ms=ms, plain=plain, bound=bnd_ms,
+                                      by=by, library=lib)
+            gbs = k * n / 2 / (ms * 1e-3) / 1e9
+            log(f"K3 time {name} [{b},{k}]x[{k},{n}] g128: kernel {ms:.4f} "
+                f"ms ({gbs:.0f} GB/s of packed weights, {sets} buffer "
+                f"sets), plain {plain:.4f} ms, bound {bnd_ms:.4f} ms ({by})"
+                + ("" if b != 16 else
+                   f", torch._weight_int4pack_mm "
+                   f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 "
+                   f"torch.matmul on the dequantised weight {bf16:.4f} ms "
+                   f"(context)"))
+        del layers
+    return worst, timings
+
+
+def chunk_state(dev, b, h, h_kv, s, c, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f, f_kv = h * 64, h_kv * 64
+    return (torch.randn(b, c, f, generator=g, device=dev).to(dtype),
+            torch.randn(b, c, 2 * f_kv, generator=g, device=dev).to(dtype),
+            torch.randn(b, s, 2 * f_kv, generator=g, device=dev).to(dtype))
+
+
+def check_chunk_attention(dev):
+    """K5 against chunk_decode_attention_ref: B 16, 16 heads x 64, S 640,
+    C 1 (draft step) and 5 (k = 4 verify), bf16 and f32 caches, per-row
+    positions with 0, 7, 8 and 639 - C among them, GQA rep 2 and 4, prefix
+    padding, and a backward position jump across two calls. The output to
+    4 bf16 ulps of its largest value (f32: 1e-5), the cache rows below
+    pos + C (and all others) exactly."""
+    from llamagen_tpu_torch.ops.chunk_attention import (
+        chunk_decode_attention, chunk_decode_attention_ref)
+    b, h, s = 16, 16, 640
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+
+    def compare(label, q, kv_new, kv, pos, pad, h_kv):
+        kv_ref = kv.clone()
+        out = chunk_decode_attention(q, kv_new, kv, pos, h, pad)
+        ref = chunk_decode_attention_ref(q, kv_new, kv_ref, pos, h, pad)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        rel = 2 ** -6 if q.dtype == torch.bfloat16 else 1e-5
+        tol = rel * max(1.0, ref.float().abs().max().item())
+        same = torch.equal(kv, kv_ref)
+        log(f"K5 {label}: max_abs_err {err:.3g} (tol {tol:.3g}), cache "
+            f"equal: {same}")
+        if not (err <= tol and same):
+            raise AssertionError(f"K5 {label} disagrees with the plain "
+                                 f"version")
+        return err
+
+    for i, (c, dtype, h_kv, padded) in enumerate(
+            [(c, dt, 16, False) for c in (1, 5)
+             for dt in (torch.bfloat16, torch.float32)]
+            + [(5, torch.bfloat16, 8, False), (5, torch.bfloat16, 4, True),
+               (1, torch.bfloat16, 16, True)]):
+        q, kv_new, kv = chunk_state(dev, b, h, h_kv, s, c, dtype, 40 + i)
+        pos = torch.randint(0, s - c + 1, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[:4] = torch.tensor([0, 7, 8, s - 1 - c], device=dev)
+        pad = None
+        if padded:  # masked left padding, never past the row's position
+            pad = torch.minimum(torch.randint(0, 40, (b,), generator=g,
+                                              device=dev, dtype=torch.int32),
+                                pos)
+        label = (f"chunk_decode_attention C {c}, {str(dtype)[6:]} cache, "
+                 f"H/H_kv {h}/{h_kv}, prefix_pad {'yes' if padded else 'no'}")
+        worst = max(worst, compare(label, q, kv_new, kv, pos, pad, h_kv))
+
+    # a backward jump: a verify chunk at 300, one token committed, the next
+    # chunk at 301 over the rows the first one wrote (rows 301..304 redone)
+    q, kv_new, kv = chunk_state(dev, b, h, h, s, 5, torch.bfloat16, 60)
+    pos = torch.full((b,), 300, dtype=torch.int32, device=dev)
+    compare("backward jump, call 1 at pos 300", q, kv_new, kv, pos, None, h)
+    q2, kv2, _ = chunk_state(dev, b, h, h, s, 5, torch.bfloat16, 61)
+    worst = max(worst, compare("backward jump, call 2 at pos 301", q2, kv2,
+                               kv, pos + 1, None, h))
+
+    # times at the main path's mean position, one buffer set per layer
+    timings = {}
+    pos = 288
+    for c in (5, 1):
+        states = [chunk_state(dev, b, h, h, s, c, torch.bfloat16, 100 + l)
+                  for l in range(24)]
+        ms = graph_ms([lambda st=st: chunk_decode_attention(
+            st[0], st[1], st[2], pos, h) for st in states])
+        plain = graph_ms([lambda st=st: chunk_decode_attention_ref(
+            st[0], st[1], st[2], pos, h) for st in states])
+        q, kv_new, kv = states[0]
+        row = kv.shape[2] * kv.element_size()
+        bnd_ms, by = bound(nbytes(q, kv_new, q) + b * (pos + c) * row
+                           + b * c * row, 4 * b * h * 64 * c * (pos + c))
+        f = h * 64
+        qs = [st[0].view(b, c, h, 64).transpose(1, 2) for st in states]
+        ks = [st[2][..., :f].view(b, s, h, 64).transpose(1, 2)
+              for st in states]
+        vs = [st[2][..., f:].view(b, s, h, 64).transpose(1, 2)
+              for st in states]
+        cols = torch.arange(s, device=dev)
+        mask = (cols[None, :] <= pos + torch.arange(c, device=dev)[:, None]
+                ).view(1, 1, c, s)
+        lib = library_time("K5 library (SDPA)", lambda: graph_ms(
+            [lambda i=i: F.scaled_dot_product_attention(
+                qs[i], ks[i], vs[i], attn_mask=mask)
+             for i in range(len(states))]))
+        timings[c] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
+                          library=lib)
+        log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S {s}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} "
+            f"ms ({by}), SDPA with the row mask over the cache "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+        del states, qs, ks, vs
+    return worst, timings
+
+
+def run_w4_path(dev):
+    """GPT-L 384, grouped W4 (quantize_gpt_params_w4k defaults) + bf16 KV,
+    batch 8 + CFG 2.0, 576 tokens, then the VQ-16 decoder. Prefill runs
+    rank-3 matmuls on the dequantised fallback, every decode step's five
+    layer matmuls on K3: counters 5 * 24 * 575 (K3) and 24 * 575 (K1)."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.models import vq
+    from llamagen_tpu_torch.ops.attention import decode_attention
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.ops.w4_matmul import (quantize_gpt_params_w4k,
+                                                  w4_matmul)
+    model = quantize_gpt_params_w4k(gpt_l(dev))
+    labels = torch.arange(BATCH, device=dev) * 100 % 1000
+    kw = dict(cfg_scale=CFG_SCALE, compute_dtype=torch.bfloat16,
+              cache_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    generate(model, labels, max_new_tokens=40, generator=gen, **kw)  # warm
+    torch.cuda.synchronize()
+
+    decode_attention.launches = 0
+    w4_matmul.launches = 0
+    t0 = time.time()
+    tokens = generate(model, labels, max_new_tokens=TOKENS, generator=gen,
+                      **kw)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k1, k3 = decode_attention.launches, w4_matmul.launches
+    n_layer = model.cfg.n_layer
+    log(f"W4 path (GPT-L 384, grouped W4A16 + bf16 KV, batch {BATCH} + CFG "
+        f"{CFG_SCALE}): {TOKENS} tokens in {secs:.3f} s = "
+        f"{BATCH / secs:.3f} img/s, {1e3 * secs / TOKENS:.3f} ms/token step; "
+        f"launches w4_matmul {k3}, decode_attention {k1}")
+    if k3 != 5 * n_layer * (TOKENS - 1) or k1 != n_layer * (TOKENS - 1):
+        raise AssertionError(f"launch counts {k3}, {k1}: expected "
+                             f"{5 * n_layer * (TOKENS - 1)}, "
+                             f"{n_layer * (TOKENS - 1)}")
+    if tokens.shape != (BATCH, TOKENS) or tokens.min() < 0 \
+            or tokens.max() >= model.cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tokens.shape}")
+    vq_model = vq.init_weights(vq.VQModel(vq_config("VQ-16"), device=dev,
+                                          dtype=torch.bfloat16))
+    imgs = vq_model.decode_code(tokens.reshape(BATCH, 24, 24))
+    torch.cuda.synchronize()
+    if imgs.shape != (BATCH, 384, 384, 3) or not torch.isfinite(imgs).all():
+        raise AssertionError("W4 path images are not finite [8, 384, 384, 3]")
+    log(f"W4 path VQ-16 decode -> {tuple(imgs.shape)}, finite")
+    return {"w4_matmul": k3, "decode_attention": k1,
+            "img_s": BATCH / secs}
+
+
+def run_speculative(dev):
+    """Self-speculation at GPT-L 384: the bf16 target, a grouped-W4 copy of
+    it as the draft, k = 4, batch 8 + CFG 4.0, sampled, 576 tokens, bf16
+    caches. Each round runs k + 1 draft steps (C = 1) and one verify
+    (C = 5), all on K5: counters 24 * (k + 2) * rounds (K5) and
+    5 * 24 * (k + 1) * rounds (K3, the draft's decode matmuls)."""
+    import copy
+    from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.speculative import generate_speculative
+    from llamagen_tpu_torch.ops.w4_matmul import (quantize_gpt_params_w4k,
+                                                  w4_matmul)
+    target = gpt_l(dev, seed=21)
+    draft = quantize_gpt_params_w4k(copy.deepcopy(target))
+    labels = torch.arange(BATCH, device=dev) * 100 % 1000
+    kw = dict(k=SPEC_K, cfg_scale=SPEC_CFG, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    generate_speculative(target, draft, labels, max_new_tokens=16,
+                         generator=gen, **kw)  # warm
+    torch.cuda.synchronize()
+
+    chunk_decode_attention.launches = 0
+    w4_matmul.launches = 0
+    t0 = time.time()
+    tokens, rounds = generate_speculative(target, draft, labels,
+                                          max_new_tokens=TOKENS,
+                                          generator=gen, **kw)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k5, k3 = chunk_decode_attention.launches, w4_matmul.launches
+    n_layer = target.cfg.n_layer
+    log(f"speculative path (GPT-L 384 bf16 target, W4 g128 self-draft, k "
+        f"{SPEC_K}, batch {BATCH} + CFG {SPEC_CFG}, sampled): {TOKENS} "
+        f"tokens in {rounds} rounds = {TOKENS / rounds:.3f} tokens/round "
+        f"({(TOKENS - 1) / rounds:.3f} after the prefill token), "
+        f"{secs:.3f} s = {BATCH / secs:.3f} img/s, "
+        f"{1e3 * secs / rounds:.3f} ms/round; launches "
+        f"chunk_decode_attention {k5}, w4_matmul {k3}")
+    want5 = n_layer * (SPEC_K + 2) * rounds
+    want3 = 5 * n_layer * (SPEC_K + 1) * rounds
+    if k5 != want5 or k3 != want3:
+        raise AssertionError(f"launch counts {k5}, {k3}: expected {want5}, "
+                             f"{want3}")
+    if tokens.shape != (BATCH, TOKENS) or tokens.min() < 0 \
+            or tokens.max() >= target.cfg.vocab_size \
+            or not -(-(TOKENS - 1) // (SPEC_K + 1)) <= rounds <= TOKENS - 1:
+        raise AssertionError(f"bad tokens {tuple(tokens.shape)} or rounds "
+                             f"{rounds}")
+    return {"chunk_decode_attention": k5, "w4_matmul": k3,
+            "rounds": rounds, "img_s": BATCH / secs}
+
+
+def run_spec_cli(dev):
+    """The speculative path through its CLIs: a random GPT-L 384 checkpoint,
+    `tools quantize-ckpt --mode w4` of it as the draft checkpoint, then
+    `sample_c2i --draft-gpt-model GPT-L` (k 4, CFG 4.0, bf16)."""
+    import numpy as np
+    from llamagen_tpu_torch.cli import sample_c2i, tools
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "gpt_l_random.pt")
+        draft = os.path.join(tmp, "gpt_l_random_w4.pt")
+        torch.save(gpt_l(dev, seed=3).state_dict(), ckpt)
+        tools.main(["quantize-ckpt", "--in", ckpt, "--out", draft,
+                    "--mode", "w4", "--gpt-model", "GPT-L",
+                    "--image-size", "384", "--device", "cuda"])
+        out = os.path.join(tmp, "grid.png")
+        res = sample_c2i.main([
+            "--gpt-model", "GPT-L", "--gpt-ckpt", ckpt,
+            "--draft-gpt-model", "GPT-L", "--draft-gpt-ckpt", draft,
+            "--spec-k", str(SPEC_K), "--image-size", "384",
+            "--precision", "bf16", "--device", "cuda", "--out", out])
+        png_ok = os.path.getsize(out) > 0
+        draft_mb = os.path.getsize(draft) / 1e6
+    n = res.images.shape[0]
+    log(f"CLI speculative sample_c2i (GPT-L 384 bf16 target, W4 checkpoint "
+        f"of it as the draft, {draft_mb:.1f} MB, k {SPEC_K}, {n} images + "
+        f"CFG {SPEC_CFG}): {res.rounds} rounds, {TOKENS / res.rounds:.3f} "
+        f"tokens/round, sampling {res.gen_seconds:.3f} s = "
+        f"{n / res.gen_seconds:.3f} img/s")
+    if res.images.shape != (8, 384, 384, 3) or res.rounds is None \
+            or not np.isfinite(res.images).all() or not png_ok \
+            or res.tokens.min() < 0 or res.tokens.max() >= 16384:
+        raise AssertionError("speculative CLI output is not 8 finite 384 px "
+                             "images")
+
+
+def run_spec_greedy_f32(dev):
+    """Greedy speculative decoding commits exactly the target's greedy
+    chain: GPT-L in f32 (f32 caches), a W4 copy as the draft, 64 tokens,
+    batch 8 + CFG 2.0, against the port's `generate` on the same target."""
+    import copy
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.ops.speculative import generate_speculative
+    from llamagen_tpu_torch.ops.w4_matmul import quantize_gpt_params_w4k
+    target = gpt_l(dev, seed=31, dtype=torch.float32)
+    draft = quantize_gpt_params_w4k(copy.deepcopy(target))
+    labels = torch.arange(BATCH, device=dev) * 37 % 1000
+    kw = dict(max_new_tokens=64, cfg_scale=CFG_SCALE, sample_logits=False,
+              compute_dtype=torch.float32)
+    ref = generate(target, labels, cache_dtype=torch.float32, **kw)
+    got, rounds = generate_speculative(target, draft, labels, k=SPEC_K, **kw)
+    same = torch.equal(got, ref)
+    log(f"greedy f32 GPT-L, W4 self-draft, 64 tokens x {BATCH}: "
+        f"speculative == generate: {same} ({rounds} rounds, "
+        f"{len(torch.unique(ref))} distinct tokens)")
+    if not same:
+        bad = (got != ref).nonzero()[:5].tolist()
+        raise AssertionError(f"greedy speculative tokens differ at {bad}")
+    return rounds
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: training attention (K4), the training CLI, one step vs plain
 # ---------------------------------------------------------------------------
 
 
@@ -468,6 +931,39 @@ def check_train_attention(dev):
     out = ta.causal_attention_ref(*xs, scale)
     t["plain_bwd"] = cuda_ms(lambda: torch.autograd.grad(
         out, xs, w, retain_graph=True))
+    # torch's fused attention on the same inputs ([B, H, S, D] views)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.no_grad():
+        t["sdpa_fwd"] = library_time("K4 library (SDPA forward)",
+                                     lambda: cuda_ms(
+                                         lambda: F.scaled_dot_product_attention(
+                                             qt, kt, vt, is_causal=True)))
+    xs = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+    out_t = F.scaled_dot_product_attention(*xs, is_causal=True)
+    t["sdpa_bwd"] = library_time("K4 library (SDPA backward)",
+                                 lambda: cuda_ms(lambda: torch.autograd.grad(
+                                     out_t, xs, w.transpose(1, 2),
+                                     retain_graph=True)))
+    # bounds per layer call: each input read once, each output written once;
+    # one causal [S, S] x D product is 2 * B * H * D * S (S + 1) / 2 flops
+    act = q.numel() * q.element_size()
+    rowstat = TRAIN_BATCH * 16 * TOKENS * 4  # lse or delta, f32
+    prod = 2 * TRAIN_BATCH * 16 * 64 * TOKENS * (TOKENS + 1) / 2
+    bounds = {"fwd": bound(4 * act + rowstat, 2 * prod),
+              "dq": bound(6 * act + 2 * rowstat, 3 * prod),
+              "dkdv": bound(6 * act + 2 * rowstat, 4 * prod)}
+    # the record's entries; no single library call computes dq or dk/dv
+    # alone, and the plain version has no separate backward passes, so
+    # both backward kernels stand beside the whole plain backward
+    t["record"] = {
+        key: dict(ms=t[key], plain=t["plain_fwd" if key == "fwd"
+                                     else "plain_bwd"],
+                  bound=bounds[key][0], by=bounds[key][1],
+                  library=t["sdpa_fwd"] if key == "fwd" else None)
+        for key in bounds}
+    log(f"K4 bounds per layer call (ms, bound by): {bounds}; SDPA "
+        f"forward {t['sdpa_fwd']} ms, SDPA backward (dq, dk, dv together) "
+        f"{t['sdpa_bwd']} ms")
     flop = 2 * 2 * TRAIN_BATCH * 16 * TOKENS * (TOKENS + 1) / 2 * 64
     log(f"K4 time, GPT-L training shape {list(gpt_l_shape)} bf16, per layer:"
         f" forward {t['fwd']:.3f} ms (plain {t['plain_fwd']:.3f}), "
@@ -646,6 +1142,12 @@ def main():
     launches = phase("sampling main path", run_main_path)
     phase("sampling CLI", run_cli)
     phase("teacher forcing", run_teacher_forced)
+    k3_err, k3_t = phase("K3 checks", check_w4_matmul)
+    k5_err, k5_t = phase("K5 checks", check_chunk_attention)
+    w4_launches = phase("W4 sampling path", run_w4_path)
+    spec_launches = phase("speculative path", run_speculative)
+    phase("speculative CLI", run_spec_cli)
+    phase("greedy f32 speculative == generate", run_spec_greedy_f32)
     k4_err, k4_t = phase("K4 checks", check_train_attention)
     k4_launches, _ = phase("training CLI", run_train_cli)
     phase("training CLI, remat save_attn",
@@ -653,35 +1155,42 @@ def main():
     phase("training step vs plain", run_train_step_vs_plain)
     log(f"phase seconds: {phases}")
 
-    k4 = "llamagen_tpu_torch/csrc/train_attention.cu"
+    def entry(name, source, replaces, launches_, err, t):
+        """One kernel's record: bound_ms / bound_by from this run's inputs,
+        every time measured in this run."""
+        return {"name": name, "route": "cuda",
+                "source": f"llamagen_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain"],
+                "bound_ms": t["bound"], "bound_by": t["by"],
+                "library_ms": t["library"]}
+
+    k4 = "train_attention.cu"
     record = {"kernels": [
-        {"name": "decode_attention", "route": "cuda",
-         "source": "llamagen_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "llamagen_tpu/ops/attention.py:569",
-         "launches": launches["decode_attention"], "max_abs_err": k1_err,
-         "ms": k1_t["int8"][0], "plain_ms": k1_t["int8"][1]},
-        {"name": "int8_matmul", "route": "cuda",
-         "source": "llamagen_tpu_torch/csrc/int8_matmul.cu",
-         "replaces": "llamagen_tpu/ops/quant_matmul.py:62",
-         "launches": launches["int8_matmul"], "max_abs_err": k2_err,
-         "ms": k2_t["wqkv"][0], "plain_ms": k2_t["wqkv"][1]},
-        # K4: the plain version has no separate dq and dk/dv passes, so
-        # both backward kernels stand beside the whole plain backward
-        {"name": "train_attention_fwd", "route": "cuda", "source": k4,
-         "replaces": "llamagen_tpu/ops/train_attention.py:195",
-         "launches": k4_launches["train_attention_fwd"],
-         "max_abs_err": k4_err["fwd"], "ms": k4_t["fwd"],
-         "plain_ms": k4_t["plain_fwd"]},
-        {"name": "train_attention_dq", "route": "cuda", "source": k4,
-         "replaces": "llamagen_tpu/ops/train_attention.py:213",
-         "launches": k4_launches["train_attention_dq"],
-         "max_abs_err": k4_err["dq"], "ms": k4_t["dq"],
-         "plain_ms": k4_t["plain_bwd"]},
-        {"name": "train_attention_dkdv", "route": "cuda", "source": k4,
-         "replaces": "llamagen_tpu/ops/train_attention.py:213",
-         "launches": k4_launches["train_attention_dkdv"],
-         "max_abs_err": k4_err["dkdv"], "ms": k4_t["dkdv"],
-         "plain_ms": k4_t["plain_bwd"]},
+        entry("decode_attention", "decode_attention.cu",
+              "llamagen_tpu/ops/attention.py:569",
+              launches["decode_attention"], k1_err, k1_t["int8"]),
+        entry("int8_matmul", "int8_matmul.cu",
+              "llamagen_tpu/ops/quant_matmul.py:62",
+              launches["int8_matmul"], k2_err, k2_t["wqkv"]),
+        entry("w4_matmul", "w4_matmul.cu",
+              "llamagen_tpu/ops/w4_matmul.py:315",
+              w4_launches["w4_matmul"], k3_err, k3_t[("wqkv", 16)]),
+        entry("train_attention_fwd", k4,
+              "llamagen_tpu/ops/train_attention.py:195",
+              k4_launches["train_attention_fwd"], k4_err["fwd"],
+              k4_t["record"]["fwd"]),
+        entry("train_attention_dq", k4,
+              "llamagen_tpu/ops/train_attention.py:213",
+              k4_launches["train_attention_dq"], k4_err["dq"],
+              k4_t["record"]["dq"]),
+        entry("train_attention_dkdv", k4,
+              "llamagen_tpu/ops/train_attention.py:213",
+              k4_launches["train_attention_dkdv"], k4_err["dkdv"],
+              k4_t["record"]["dkdv"]),
+        entry("chunk_decode_attention", "chunk_attention.cu",
+              "llamagen_tpu/ops/chunk_attention.py:315",
+              spec_launches["chunk_decode_attention"], k5_err, k5_t[5]),
     ]}
     print(smi)
     print(json.dumps(record))

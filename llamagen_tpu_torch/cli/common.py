@@ -11,9 +11,9 @@ import numpy as np
 import torch
 
 from llamagen_tpu_torch.config import gpt_config, vq_config
-from llamagen_tpu.utils.convert import load_torch_state_dict
 from llamagen_tpu_torch.models import gpt as gpt_lib
 from llamagen_tpu_torch.models import vq as vq_lib
+from llamagen_tpu_torch.utils.convert import load_torch_state_dict
 
 
 def get_device(name: str) -> torch.device:
@@ -24,14 +24,14 @@ def get_device(name: str) -> torch.device:
     return device
 
 
-def _load(path: str) -> Dict[str, torch.Tensor]:
+def _load(path: str, keep_dtypes: bool = False) -> Dict[str, torch.Tensor]:
     """A released `.pt` (trainer wrappers and `module.` prefixes removed)."""
     out = {}
-    for k, v in load_torch_state_dict(path).items():
+    for k, v in load_torch_state_dict(path, keep_dtypes).items():
         for prefix in ("module.", "_orig_mod."):
             if k.startswith(prefix):
                 k = k[len(prefix):]
-        out[k] = torch.from_numpy(v)
+        out[k] = v
     return out
 
 
@@ -41,18 +41,39 @@ def _load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
         raise KeyError(f"checkpoint lacks {missing[:8]}")
 
 
+def _shape_quantized_linears(model: gpt_lib.Transformer,
+                             sd: Dict[str, torch.Tensor]) -> None:
+    """Each `Linear` whose checkpoint entry is quantised (W8A16 `weight_q` /
+    `weight_scale` or W4 `weight_w4b` / `weight_w4s`, as `cli/tools.py
+    quantize-ckpt` writes them) gets buffers of the stored shapes and
+    dtypes in place of its `weight`, which `load_state_dict` then fills."""
+    for name, mod in model.named_modules():
+        if not isinstance(mod, gpt_lib.Linear):
+            continue
+        keys = [k for k in mod.QUANT_KEYS if f"{name}.{k}" in sd]
+        if keys:
+            dev = mod.weight.device
+            mod.weight = None
+            for k in keys:
+                setattr(mod, k, torch.empty_like(sd[f"{name}.{k}"],
+                                                 device=dev))
+
+
 def load_gpt(gpt_ckpt: Optional[str], gpt_model: str, image_size: int,
              downsample_size: int, dtype: torch.dtype,
              device: torch.device) -> gpt_lib.Transformer:
-    """c2i GPT from a `.pt` state dict, or seeded random weights (the
-    reference init, zero head) when `gpt_ckpt` is None."""
+    """c2i GPT from a `.pt` state dict (bf16/f32, or W8A16 / W4 quantised),
+    or seeded random weights (the reference init, zero head) when
+    `gpt_ckpt` is None."""
     latent = image_size // downsample_size
     cfg = gpt_config(gpt_model, block_size=latent * latent, cls_token_num=1)
     model = gpt_lib.Transformer(cfg, device=device, dtype=dtype)
     if gpt_ckpt is None:
         gpt_lib.init_weights(model, seed=0)
     else:
-        _load_into(model, _load(gpt_ckpt))
+        sd = _load(gpt_ckpt, keep_dtypes=True)
+        _shape_quantized_linears(model, sd)
+        _load_into(model, sd)
     return model.eval()
 
 

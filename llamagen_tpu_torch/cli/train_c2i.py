@@ -19,15 +19,15 @@ import time
 import numpy as np
 import torch
 
-from llamagen_tpu.data.codes import (NpyCodeDataset, PackedCodeDataset,
-                                     SyntheticCodeDataset, pack_shards)
-from llamagen_tpu.utils.metrics import MetricsLogger
 from llamagen_tpu_torch.cli.common import get_device
 from llamagen_tpu_torch.config import gpt_config
+from llamagen_tpu_torch.data.codes import (NpyCodeDataset, PackedCodeDataset,
+                                           SyntheticCodeDataset, pack_shards)
 from llamagen_tpu_torch.train import c2i
 from llamagen_tpu_torch.utils import checkpoint
 from llamagen_tpu_torch.utils.logger import (create_experiment_dir,
                                              create_logger)
+from llamagen_tpu_torch.utils.metrics import MetricsLogger
 
 
 def _has(path, suffixes) -> bool:
@@ -142,7 +142,7 @@ def main(argv=None):
         max_steps = args.synthetic_steps
     elif _has(args.code_path, ".codes"):
         # raw shards -> threaded C++ loader (preferred input path)
-        from llamagen_tpu.data.native import NativeCodeLoader
+        from llamagen_tpu_torch.data.native import NativeCodeLoader
         it = NativeCodeLoader(args.code_path, host_batch, seed=args.seed)
         # the loader reshuffles forever: --epochs becomes a step bound
         max_steps = args.max_steps

@@ -38,6 +38,7 @@ from llamagen_tpu_torch.ops.attention import (TAIL, batch_positions,
 from llamagen_tpu_torch.ops.quant_matmul import matmul_any, quantize_weight
 from llamagen_tpu_torch.ops.train_attention import (TRAIN_ATTENTION_OP,
                                                     causal_attention_padded)
+from llamagen_tpu_torch.ops.w4_matmul import SEG_ROWS, pack_w4
 
 
 # ---------------------------------------------------------------------------
@@ -106,24 +107,36 @@ def split_heads(qkv: torch.Tensor, h_q: int, h_kv: int, head_dim: int):
 
 class Linear(nn.Module):
     """Bias-free linear layer, `weight [out, in]`. After `quantize_()` it
-    holds W8A16 `weight_q [in, out]` int8 + `weight_scale [out]` f32
-    instead, and runs on the int8 kernel (`ops.quant_matmul`)."""
+    holds W8A16 `weight_q [in, out]` int8 + `weight_scale [out]` f32 and
+    runs on the int8 kernel (`ops.quant_matmul`); after `quantize_w4_()` it
+    holds W4 `weight_w4b [NB, in/2, BN]` int8 + `weight_w4s [NB, R, BN]`
+    f32 and runs on the W4 kernel (`ops.w4_matmul`) for rank-2 inputs."""
+
+    QUANT_KEYS = ("weight_q", "weight_scale", "weight_w4b", "weight_w4s")
 
     def __init__(self, in_features: int, out_features: int, device=None,
                  dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device, dtype=dtype))
-        self.register_buffer("weight_q", None)
-        self.register_buffer("weight_scale", None)
+        for key in self.QUANT_KEYS:
+            self.register_buffer(key, None)
 
     def quantize_(self) -> None:
         q, s = quantize_weight(self.weight.detach().t())
         self.weight = None
         self.weight_q, self.weight_scale = q.contiguous(), s
 
+    def quantize_w4_(self, per_channel: bool = False,
+                     group_size: int = SEG_ROWS) -> None:
+        self.weight_w4b, self.weight_w4s = pack_w4(
+            self.weight.detach().t(), per_channel=per_channel,
+            group_size=group_size)
+        self.weight = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return matmul_any(x, self.weight, self.weight_q, self.weight_scale)
+        return matmul_any(x, self.weight, self.weight_q, self.weight_scale,
+                          self.weight_w4b, self.weight_w4s)
 
 
 class RMSNorm(nn.Module):
@@ -290,17 +303,33 @@ def quantize_cache(cache: KVCache, cfg: GPTConfig,
 Attend = Callable[[int, torch.Tensor], torch.Tensor]
 
 
-def decode_stack(model: Transformer, h: torch.Tensor,
-                 attend: Attend) -> torch.Tensor:
+def decode_stack(model: Transformer, h: torch.Tensor, attend: Attend,
+                 flatten: bool = True) -> torch.Tensor:
     """The layer loop + final norm + output head. h [..., D];
     attend(l, qkv) -> [..., F] owns rope, the cache update and attention.
-    Returns f32 logits [..., V]."""
+    Returns f32 logits [..., V].
+
+    flatten: run every matmul on x flattened to rank 2, as JAX's
+    `decode_stack` does (gpt.py:598-602), so W4 weights take the W4 kernel
+    on every decode, draft and verify step. Prefill passes False: JAX runs
+    it through `_run_layers` on rank-3 x, where W4 weights take the
+    dequantised fallback (which does not round x to bf16)."""
+    lead = h.shape[:-1]
+
+    def mm(lin: Linear, x: torch.Tensor) -> torch.Tensor:
+        if not flatten:
+            return lin(x)
+        out = lin(x.reshape(-1, x.shape[-1]))
+        return out.reshape(*lead, out.shape[-1])
+
     for l, layer in enumerate(model.layers):
         x = layer.attention_norm(h)
-        attn = attend(l, layer.attention.wqkv(x))
-        h = h + layer.attention.wo(attn.to(x.dtype)).to(h.dtype)
-        h = h + layer.feed_forward(layer.ffn_norm(h)).to(h.dtype)
-    return model.output(model.norm(h)).float()
+        attn = attend(l, mm(layer.attention.wqkv, x))
+        h = h + mm(layer.attention.wo, attn.to(x.dtype)).to(h.dtype)
+        ff = layer.feed_forward
+        x = layer.ffn_norm(h)
+        h = h + mm(ff.w2, F.silu(mm(ff.w1, x)) * mm(ff.w3, x)).to(h.dtype)
+    return mm(model.output, model.norm(h)).float()
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -358,7 +387,7 @@ def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
         vv = ckv[:, :t, f_kv:].reshape(b, t, cfg.kv_heads, cfg.head_dim)
         return _sdpa(q, kk.to(q.dtype), vv.to(q.dtype), causal)
 
-    return decode_stack(model, h, attend)[:, -1]
+    return decode_stack(model, h, attend, flatten=False)[:, -1]
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """W8A16 weights: int8 weight matrices with per-output-channel scales.
 
-PyTorch counterpart of `llamagen_tpu/ops/quant_matmul.py` (bf16 and int8
-branches; the int4 / W4 branches are not ported). On the TPU, XLA fuses the
+PyTorch counterpart of `llamagen_tpu/ops/quant_matmul.py`: the bf16, int8
+and W4 (`ops/w4_matmul.py`) branches of `matmul_any`; the XLA-only
+`int4_matmul` storage mode is not ported. On the TPU, XLA fuses the
 int8 -> bf16 convert into the matmul's weight read. PyTorch has no such
 fusion, so here every W8A16 product goes through the hand-written CUDA
 kernel `csrc/int8_matmul.cu` (`int8_matmul`); the dequantised matrix never
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from llamagen_tpu_torch.ops import _build
+from llamagen_tpu_torch.ops.w4_matmul import w4_dequant, w4_matmul
 
 _CHUNK = 128  # K rows per round of csrc/int8_matmul.cu (kChunk)
 
@@ -108,13 +110,23 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def matmul_any(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                weight_q: Optional[torch.Tensor] = None,
-               weight_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weight_scale: Optional[torch.Tensor] = None,
+               w4_blocks: Optional[torch.Tensor] = None,
+               w4_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., K] @ W -> [..., N] for a bf16/f32 `weight [N, K]` (nn.Linear
-    layout) or a W8A16 `weight_q [K, N]` + `weight_scale [N]`.
+    layout), a W8A16 `weight_q [K, N]` + `weight_scale [N]`, or W4
+    `w4_blocks` + `w4_scales` (`ops/w4_matmul.py` layout).
 
-    The quantised branch flattens x to rank 2 and runs `int8_matmul`; the
-    plain branch is an ordinary matrix product (left to XLA in JAX).
+    The W8A16 branch flattens x to rank 2 and runs `int8_matmul`. The W4
+    branch runs `w4_matmul` on rank-2 x only (every decode-stack matmul);
+    rank >= 3 x (prefill, training) takes the plain dequantised product, as
+    JAX's `matmul_any` does (quant_matmul.py:224-234). The plain branch is an
+    ordinary matrix product (left to XLA in JAX).
     """
+    if w4_blocks is not None:
+        if x.dim() == 2:
+            return w4_matmul(x, w4_blocks, w4_scales)
+        return x @ w4_dequant(w4_blocks, w4_scales).to(x.dtype)
     if weight_q is None:
         return x @ weight.to(x.dtype).t()
     out = int8_matmul(x.reshape(-1, x.shape[-1]), weight_q, weight_scale)

@@ -1,6 +1,10 @@
-"""JAX parameter trees -> port state dicts (upstream LlamaGen keys).
+"""Checkpoint loading, and JAX parameter trees -> port state dicts
+(upstream LlamaGen keys).
 
-The inverses of `llamagen_tpu/utils/convert.py::convert_gpt` and
+`load_torch_state_dict` reads a `.pt` checkpoint (the port's copy of the
+JAX package's loader, `llamagen_tpu/utils/convert.py`).
+
+The other functions are the inverses of that module's `convert_gpt` and
 `convert_vq`: per-layer tensors are unstacked from `[L, ...]`, `[in, out]`
 kernels go back to `[out, in]`, HWIO convolutions back to OIHW, and dense
 `[I, O]` kernels that upstream stores as 1x1 convolutions back to
@@ -18,6 +22,26 @@ import torch
 from llamagen_tpu_torch.config import GPTConfig, VQConfig
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def load_torch_state_dict(path: str, keep_dtypes: bool = False) -> StateDict:
+    """A `.pt` checkpoint -> {name: CPU tensor}, unwrapping trainer dicts
+    (`model`, `module`, `state_dict`, `ema`).
+
+    By default every tensor comes back f32, as the JAX package's loader
+    gives it. `keep_dtypes` keeps each tensor's stored dtype: quantised
+    checkpoints (`cli/tools.py quantize-ckpt`) hold int8 W8A16 weights and
+    nibble-packed W4 blocks, which an upcast would corrupt.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("model", "module", "state_dict", "ema"):
+        if isinstance(ckpt, dict) and key in ckpt \
+                and isinstance(ckpt[key], dict):
+            ckpt = ckpt[key]
+            break
+    return {k: v.detach().cpu() if keep_dtypes
+            else v.detach().to(torch.float32).cpu()
+            for k, v in ckpt.items() if torch.is_tensor(v)}
 
 
 def _t(x) -> torch.Tensor:

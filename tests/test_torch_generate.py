@@ -20,7 +20,7 @@ from llamagen_tpu.ops.quant_matmul import quantize_gpt_params as jquantize
 from llamagen_tpu_torch.ops import sampling
 from llamagen_tpu_torch.ops.generate import generate
 from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
-from test_torch_gpt import NANO, make_pair
+from test_torch_gpt import NANO, jax_config, make_pair
 from test_torch_gpt import one_torch_thread  # noqa: F401  (autouse)
 
 LABELS = np.array([3, 7])
@@ -29,7 +29,7 @@ LABELS = np.array([3, 7])
 def _both(params, model, **kw):
     kw = dict(max_new_tokens=NANO.block_size, sample_logits=False, **kw)
     jtok = jgenerate(params, jax.random.PRNGKey(0), jnp.asarray(LABELS),
-                     cfg=NANO, use_kernel=True, compute_dtype=jnp.float32,
+                     cfg=jax_config(NANO), use_kernel=True, compute_dtype=jnp.float32,
                      cache_dtype=jnp.int8 if kw.get("int8") else jnp.float32,
                      **{k: v for k, v in kw.items() if k != "int8"})
     tok = generate(model, torch.tensor(LABELS), compute_dtype=torch.float32,

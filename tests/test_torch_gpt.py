@@ -2,6 +2,8 @@
 prefill and decode logits within 2e-4 at f32 (the PARITY.md GPT logits
 tolerance), on the same weights through the converter."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -11,10 +13,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from llamagen_tpu.config import GPTConfig, gpt_config
+from llamagen_tpu import config as jconfig
 from llamagen_tpu.models import gpt as jgpt
 from llamagen_tpu.ops.attention import RECENT, RECENT_INT8
 from llamagen_tpu.ops.quant_matmul import quantize_gpt_params as jquantize
+from llamagen_tpu_torch.config import GPTConfig, gpt_config
 from llamagen_tpu_torch.models import gpt
 from llamagen_tpu_torch.ops.attention import TAIL
 from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
@@ -22,6 +25,13 @@ from llamagen_tpu_torch.utils.convert import gpt_state_dict_from_jax
 
 NANO = gpt_config("GPT-nano", block_size=144)
 GQA = GPTConfig(dim=256, n_layer=2, n_head=4, n_kv_head=2, block_size=144)
+
+
+def jax_config(cfg):
+    """The JAX package's config (`llamagen_tpu.config`) with the fields of
+    a port config (`llamagen_tpu_torch.config`): the port and the JAX
+    package each get their own config class."""
+    return getattr(jconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(autouse=True)
@@ -38,7 +48,7 @@ def one_torch_thread():
 def make_pair(cfg, seed=0):
     """JAX params (f32, random head) and the port model on the same
     weights."""
-    params = jgpt.init_params(jax.random.PRNGKey(seed), cfg)
+    params = jgpt.init_params(jax.random.PRNGKey(seed), jax_config(cfg))
     rng = np.random.RandomState(seed)
     params["output"] = jnp.asarray(
         rng.randn(cfg.dim, cfg.vocab_size).astype(np.float32) * 0.5)
@@ -57,11 +67,12 @@ def test_prefill_and_decode_logits_match_jax(cfg, int8):
     if int8:
         params = jquantize(params)
         quantize_gpt_params(model)
+    jcfg = jax_config(cfg)
     b, t = 2, cfg.cls_token_num
     labels = np.array([3, 7])
     stage_len = 40 if int8 else 256
-    jcache = jgpt.init_cache(cfg, b, stage_len, dtype=jnp.float32)
-    jl, jcache = jgpt.prefill(params, cfg, jnp.asarray(labels), jcache,
+    jcache = jgpt.init_cache(jcfg, b, stage_len, dtype=jnp.float32)
+    jl, jcache = jgpt.prefill(params, jcfg, jnp.asarray(labels), jcache,
                               compute_dtype=jnp.float32)
     cache = gpt.init_cache(cfg, b, stage_len, torch.float32, "cpu")
     logits = gpt.prefill(model, torch.tensor(labels), cache, torch.float32)
@@ -72,14 +83,14 @@ def test_prefill_and_decode_logits_match_jax(cfg, int8):
     recent = tuple(c[:, :w] for c in jcache.kv)
     if int8:
         stage = cache
-        jcache = jgpt.quantize_cache(jcache, cfg, 256)
+        jcache = jgpt.quantize_cache(jcache, jcfg, 256)
         cache = gpt.quantize_cache(stage, cfg, 256)
         cache.tail = [c[:, :TAIL].clone() for c in stage.kv]
     else:
         cache.kv = [torch.cat([c, torch.zeros_like(c)], 1)[:, :256]
                     for c in cache.kv]
     step = jax.jit(lambda tok, pos, c, r: jgpt.decode_step_pallas(
-        params, cfg, tok, pos, c, r, compute_dtype=jnp.float32,
+        params, jcfg, tok, pos, c, r, compute_dtype=jnp.float32,
         interpret=True))
     rng = np.random.RandomState(1)
     for i in range(34 if int8 else 10):
@@ -98,7 +109,8 @@ def test_rope_table_matches_jax():
     model = gpt.Transformer(cfg, device="meta")
     table = gpt._freqs_cis_2d_np(cfg.grid_size, cfg.head_dim, cfg.rope_base,
                                  cfg.cls_token_num)
-    np.testing.assert_array_equal(table, np.asarray(jgpt.freqs_cis_2d(cfg)))
+    np.testing.assert_array_equal(
+        table, np.asarray(jgpt.freqs_cis_2d(jax_config(cfg))))
     assert model.freqs_cis.shape == (577, 32, 2)
 
 

@@ -21,12 +21,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from llamagen_tpu.config import GPTConfig, gpt_config
 from llamagen_tpu.models import gpt as jgpt
 from llamagen_tpu.train import c2i as jc2i
 from llamagen_tpu.train.train_state import init_train_state as jinit_state
 from llamagen_tpu.train.train_state import make_optimizer
 from llamagen_tpu_torch.cli import train_c2i
+from llamagen_tpu_torch.config import GPTConfig, gpt_config
 from llamagen_tpu_torch.models import gpt
 from llamagen_tpu_torch.ops import train_attention
 from llamagen_tpu_torch.train import c2i
@@ -34,7 +34,7 @@ from llamagen_tpu_torch.train.train_state import (Optimizer, decay_mask,
                                                   init_train_state)
 from llamagen_tpu_torch.utils import checkpoint
 from llamagen_tpu_torch.utils.convert import gpt_state_dict_from_jax
-from test_torch_gpt import make_pair
+from test_torch_gpt import jax_config, make_pair
 from test_torch_gpt import one_torch_thread  # noqa: F401  (autouse)
 
 NO_DROPOUT = dict(block_size=64, class_dropout_prob=0.0, token_dropout_p=0.0,
@@ -67,11 +67,12 @@ def _jax_grads_as_port(grads, cfg):
                          ids=["nano", "nano-remat", "gqa"])
 def test_forward_train_loss_and_grads_match_jax(cfg, remat):
     params, model = make_pair(cfg)
+    jcfg = jax_config(cfg)
     labels, tokens = _batch(cfg)
     jbatch = jc2i.Batch(labels=jnp.asarray(labels), tokens=jnp.asarray(tokens))
     jloss, jgrads = jax.value_and_grad(jc2i.loss_fn)(
-        params, cfg, jbatch, jax.random.PRNGKey(0), jnp.float32, False)
-    jlogits, _ = jgpt.forward_train(params, cfg, jbatch.labels,
+        params, jcfg, jbatch, jax.random.PRNGKey(0), jnp.float32, False)
+    jlogits, _ = jgpt.forward_train(params, jcfg, jbatch.labels,
                                     jbatch.tokens[:, :-1], train=False,
                                     compute_dtype=jnp.float32)
 
@@ -99,7 +100,7 @@ def test_three_train_steps_match_optax():
               warmup_steps=2)
     tx = make_optimizer(**kw)
     jstate = jinit_state(params, tx, use_ema=True)
-    jstep = jc2i.make_train_step(cfg, tx, ema_decay=0.9,
+    jstep = jc2i.make_train_step(jax_config(cfg), tx, ema_decay=0.9,
                                  compute_dtype=jnp.float32, remat=False)
     state = init_train_state(model, Optimizer(model, **kw), use_ema=True)
     step = c2i.make_train_step(ema_decay=0.9, compute_dtype=torch.float32,
