@@ -25,7 +25,8 @@ Phases, each of which raises on a failed check (exit code != 0):
 6. The W4A16 matmul (K3) against its plain version at every GPT-L layer
    shape, per channel and grouped g128, B 16 and 80, bf16 x; f32 x and a
    ragged group (K = 320); times beside the plain version, the bound and
-   `torch._weight_int4pack_mm` (tinygemm) where this torch runs it.
+   `torch._weight_int4pack_mm` (tinygemm, B 16 and 80) where this torch
+   runs it.
 7. Chunk attention (K5) against its plain version: C 1 and 5, bf16 and f32
    caches, per-row positions with 0, 7, 8 and 639 - C, GQA rep 2 and 4,
    prefix padding, a backward position jump across two calls; times
@@ -45,10 +46,12 @@ Phases, each of which raises on a failed check (exit code != 0):
 10. The training-attention kernels (K4: forward, dq, dk/dv) against their
    plain version (dense f32 scores, autograd) on the card: the GPT-L
    training shape [32, 576, 16, 64] bf16 (v a strided view, as the model
-   gives it), [2, 577, 8, 128] f32 and bf16, head_dim 100 (padded to 128)
-   and a ragged S = 257. Each prints its errors beside its tolerance; the
-   GPT-L shape prints forward and forward + backward times beside the
-   plain version's and SDPA's.
+   gives it), [2, 577, 8, 128] f32 and bf16, head_dim 100 (padded to 128),
+   a ragged S = 257, and the bf16 kernels' tile edges S 1, 65 and 129 at
+   head_dim 64 and 128. Each prints its errors beside its tolerance; the
+   GPT-L shape prints forward, dq and dk/dv times beside the plain
+   version's, the bound, SDPA's forward and backward and the times of the
+   design K4 had before.
 11. The training path: the CLI (`llamagen_tpu_torch.cli.train_c2i`) at
    GPT-L 384, batch 32, N synthetic steps with the default dropouts and
    full remat. The first loss must be ln 16384 (the zeroed head), every
@@ -535,35 +538,33 @@ def check_w4_matmul(dev):
                               for w in layers[:24]])
             bnd_ms, by = bound(nbytes(*layers[0], x) + b * n * 2,
                                2 * b * k * n)
-            lib = None
             if b == 16:
                 w_bf16 = [w4_dequant(*w).to(torch.bfloat16)
                           for w in layers[:24]]
                 bf16 = graph_ms([lambda w=w: x @ w for w in w_bf16])
                 del w_bf16
 
-                def tinygemm():
-                    ops = [w4_int4pack(*w, k) for w in layers]
-                    y = torch._weight_int4pack_mm(x, ops[0][0], 128,
-                                                  ops[0][1])
-                    e = max_err(y, w4_matmul_ref(x, *layers[0]))
-                    log(f"K3 library (tinygemm) {name}: max |difference| "
-                        f"from the plain version {e:.3g} (bf16 scales)")
-                    return graph_ms([lambda o=o: torch._weight_int4pack_mm(
-                        x, o[0], 128, o[1]) for o in ops])
-                lib = library_time(f"K3 library (torch._weight_int4pack_mm)"
-                                   f" {name}", tinygemm)
+            def tinygemm():
+                ops = [w4_int4pack(*w, k) for w in layers]
+                y = torch._weight_int4pack_mm(x, ops[0][0], 128, ops[0][1])
+                e = max_err(y, w4_matmul_ref(x, *layers[0]))
+                log(f"K3 library (tinygemm) {name} B {b}: max |difference| "
+                    f"from the plain version {e:.3g} (bf16 scales)")
+                return graph_ms([lambda o=o: torch._weight_int4pack_mm(
+                    x, o[0], 128, o[1]) for o in ops])
+            lib = library_time(f"K3 library (torch._weight_int4pack_mm) "
+                               f"{name} B {b}", tinygemm)
             timings[(name, b)] = dict(ms=ms, plain=plain, bound=bnd_ms,
                                       by=by, library=lib)
             gbs = k * n / 2 / (ms * 1e-3) / 1e9
             log(f"K3 time {name} [{b},{k}]x[{k},{n}] g128: kernel {ms:.4f} "
                 f"ms ({gbs:.0f} GB/s of packed weights, {sets} buffer "
                 f"sets), plain {plain:.4f} ms, bound {bnd_ms:.4f} ms ({by})"
+                f", torch._weight_int4pack_mm "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}"
                 + ("" if b != 16 else
-                   f", torch._weight_int4pack_mm "
-                   f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 "
-                   f"torch.matmul on the dequantised weight {bf16:.4f} ms "
-                   f"(context)"))
+                   f", bf16 torch.matmul on the dequantised weight "
+                   f"{bf16:.4f} ms (context)"))
         del layers
     return worst, timings
 
@@ -834,19 +835,22 @@ def run_spec_greedy_f32(dev):
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, reps=5):
-    """Median ms of `fn()` over `reps` runs after one warm-up, CUDA
-    events around each run."""
+def cuda_ms(fn, reps=5, calls=10):
+    """Median ms per call of `fn()`: CUDA events around `calls` calls
+    back to back (so the host's cost of each launch hides behind the
+    device's work, as in a training step), `reps` times after one
+    warm-up."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -886,6 +890,10 @@ def check_train_attention(dev):
              ((2, 577, 8, 128), torch.bfloat16, False),
              ((2, 577, 8, 100), torch.bfloat16, False),
              ((4, 257, 12, 64), torch.bfloat16, True)]
+    # the bf16 kernels' tile edges: 64-key tiles, 128 (forward) or 64
+    # (backward) query rows, one row
+    cases += [((3, s, 4, d), torch.bfloat16, True)
+              for d in (64, 128) for s in (1, 65, 129)]
     abs_err = {}
     for i, (shape, dtype, strided) in enumerate(cases):
         q, k, v, w = attention_inputs(dev, shape, dtype, 20 + i, strided)
@@ -972,6 +980,16 @@ def check_train_attention(dev):
         f"(plain {t['plain_fwd_bwd']:.3f}); causal QK^T + PV "
         f"{flop / 1e9:.1f} GFLOP = {flop / t['fwd'] / 1e9:.1f} TFLOP/s of "
         f"useful forward work")
+    sdpa = {key: "n/a" if t[f"sdpa_{key}"] is None
+            else f"{t[f'sdpa_{key}']:.4f}" for key in ("fwd", "bwd")}
+    log(f"K4 against the two-pass mma.sync design it replaced (0.596 "
+        f"forward, 0.667 dq, 1.138 dk/dv ms on an NVIDIA H100 80GB HBM3 at "
+        f"700 W, one call per pair of events) and against SDPA in this "
+        f"run: forward {t['fwd']:.4f} ms "
+        f"(bound {bounds['fwd'][0]:.4f}, SDPA {sdpa['fwd']}); dq "
+        f"{t['dq']:.4f} + dk/dv {t['dkdv']:.4f} = "
+        f"{t['dq'] + t['dkdv']:.4f} ms (bounds {bounds['dq'][0]:.4f} + "
+        f"{bounds['dkdv'][0]:.4f}, SDPA backward {sdpa['bwd']})")
     return abs_err, t
 
 

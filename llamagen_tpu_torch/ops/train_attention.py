@@ -20,12 +20,17 @@ rounding to the input dtype).
 Three kernels, each with a launch counter on its wrapper:
 `train_attention_fwd` (o and the log-sum-exp), `train_attention_dq` (dq
 and delta) and `train_attention_dkdv` (dk and dv). They take bf16 inputs
-(run on the tensor cores) or f32 inputs (run on the CUDA cores in f32):
-q, k, v with head_dim 64 or 128, any batch and row strides (v is a view
-into the wqkv output: its row stride is 3F, and it is read in place, not
-copied), and dense last two dimensions. `causal_attention_padded` zero-pads
-any other head_dim to 64 or 128 (zero lanes add exactly 0 to every score;
-the padded output lanes are sliced off).
+(run on the tensor cores: the forward in one pass on wgmma fed by TMA, the
+backward on mma.sync fed by a cp.async ring) or f32 inputs (run on the
+CUDA cores in f32): q, k, v with head_dim 64 or 128, batch and row strides
+(v is a view into the wqkv output: its row stride is 3F, and it is read in
+place, not copied; at bf16 the strides and base offsets must be multiples
+of 8 elements, 16 bytes), and dense last two dimensions. The bf16 forward
+rounds the unnormalised p = exp(s - running max) to bf16 before the
+product with v and divides by the row sum after it; the JAX kernel rounds
+the normalised p (both one bf16 rounding of p). `causal_attention_padded`
+zero-pads any other head_dim to 64 or 128 (zero lanes add exactly 0 to
+every score; the padded output lanes are sliced off).
 """
 
 from __future__ import annotations
@@ -72,11 +77,12 @@ def _strides(x: torch.Tensor) -> Tuple[int, int]:
                          f"({d}, 1)), got {x.stride()}")
     if max(x.stride(0), x.stride(1)) * x.shape[0] >= 2 ** 31:
         raise ValueError("tensor too large for the kernels' int strides")
-    if x.dtype == torch.bfloat16 and (x.stride(0) % 2 or x.stride(1) % 2
-                                      or x.data_ptr() % 4):
-        # the tensor-core path reads bf16 pairs as 32-bit words
-        raise ValueError("bf16 rows must start on 4-byte boundaries "
-                         "(even strides and offset)")
+    if x.dtype == torch.bfloat16 and (x.stride(0) % 8 or x.stride(1) % 8
+                                      or x.data_ptr() % 16):
+        # the tensor-core path moves rows in 16-byte pieces (TMA in the
+        # forward, cp.async in the backward)
+        raise ValueError("bf16 rows must start on 16-byte boundaries "
+                         "(strides and offset multiples of 8 elements)")
     return x.stride(0), x.stride(1)
 
 
@@ -92,6 +98,15 @@ def _check_cuda(*xs: torch.Tensor) -> None:
                          f"(causal_attention_padded pads others)")
     if any(x.device != q.device for x in xs):
         raise ValueError("all tensors must be on one device")
+
+
+def _check_dense(**xs: torch.Tensor) -> None:
+    """o and do: contiguous, starting on a 16-byte boundary (the kernels
+    read their rows in 16-byte pieces)."""
+    for name, x in xs.items():
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start on a "
+                             f"16-byte boundary")
 
 
 def _call(name: str, dtype: torch.dtype, n_pointers: int, *args) -> None:
@@ -120,11 +135,10 @@ def train_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dq kernel on CUDA tensors: (dq [B, S, H, D], delta [B, H, S] f32 =
-    rowsum(do * o)). o and do must be contiguous."""
+    rowsum(do * o)). o and do must be contiguous (16-byte aligned)."""
     _check_shapes(q, k, v)
     _check_cuda(q, k, v, o, do, lse)
-    if not (o.is_contiguous() and do.is_contiguous()):
-        raise ValueError("o and do must be contiguous")
+    _check_dense(o=o, do=do)
     b, s, h, d = q.shape
     dq = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
     delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
@@ -142,11 +156,11 @@ def train_attention_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          delta: torch.Tensor,
                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk/dv kernel on CUDA tensors: (dk, dv) [B, S, H, D]. do must be
-    contiguous; lse and delta come from the forward and dq kernels."""
+    contiguous (16-byte aligned); lse and delta come from the forward and
+    dq kernels."""
     _check_shapes(q, k, v)
     _check_cuda(q, k, v, do, lse, delta)
-    if not do.is_contiguous():
-        raise ValueError("do must be contiguous")
+    _check_dense(do=do)
     b, s, h, d = q.shape
     dk = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

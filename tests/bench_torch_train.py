@@ -39,8 +39,7 @@ H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "train_attention" in low or "dkdv_kernel" in low \
-            or "dq_kernel" in low or "fwd_kernel" in low:
+    if "train_attention" in low:  # csrc/train_attention.cu's namespace
         return "K4 training attention"
     if "gemm" in low or "cutlass" in low or "xmma" in low \
             or low.startswith("nvjet"):

@@ -104,6 +104,80 @@ def test_padded_head_dim_100_matches_jax():
                                    atol=1e-4)
 
 
+def _single_pass_emulation(q, k, v, scale, tile=64):
+    """The bf16 forward kernel's order of operations, tile by tile, on the
+    CPU: 64-key tiles, f32 scores, a running row max m, p = exp(s - m) in
+    f32 summed unrounded into l, p rounded to bf16 before the product with
+    v (f32 sums), the accumulator rescaled by exp(m_old - m_new) in f32,
+    and o = acc / l rounded to bf16 at the end. q, k, v: bf16 [B, S, H, D].
+    """
+    b, s, h, d = q.shape
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    m = torch.full((b, h, s, 1), float("-inf"))
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, d)
+    rows = torch.arange(s).view(s, 1)
+    for k0 in range(0, s, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        sc = (qf @ kt.transpose(-1, -2)) * scale
+        keys = torch.arange(k0, k0 + kt.shape[2]).view(1, -1)
+        sc = sc.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / l).to(torch.bfloat16).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("s", [1, 65, 129, 200])
+@pytest.mark.parametrize("d", [64, 128])
+def test_single_pass_rounding_matches_jax_bf16(s, d):
+    """The kernel's single-pass numerics (p rounded to bf16 before it is
+    normalised) stay within the bf16 tolerance of the JAX kernel, which
+    rounds the normalised p, on shapes that cross 64-key tile edges."""
+    arrays = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+              for a in _inputs((2, s, 2, d), 10 + s + d)]
+    out = _single_pass_emulation(*(torch.tensor(a, dtype=torch.bfloat16)
+                                   for a in arrays), d ** -0.5)
+    jout = causal_attention_bshd(*(jnp.asarray(a, jnp.bfloat16)
+                                   for a in arrays), d ** -0.5)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jout, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_strides_must_be_16_byte_aligned():
+    """The bf16 kernels move rows in 16-byte pieces (TMA, cp.async):
+    `_strides` takes batch and row strides and base offsets that are
+    multiples of 8 elements and raises on anything else; f32 is free."""
+    x = torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16)
+    assert ta._strides(x) == (1024, 128)
+    qkv = torch.zeros(2, 8, 3 * 128, dtype=torch.bfloat16)
+    v = qkv[..., 256:].reshape(2, 8, 2, 64)  # the model's view, stride 3F
+    assert ta._strides(v) == (8 * 384, 384)
+    odd_row = torch.zeros(2, 8, 132, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16-byte"):
+        ta._strides(odd_row.reshape(2, 8, 2, 64))
+    flat = torch.zeros(2 * 8 * 128 + 64, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ta._strides(flat[4:4 + 2 * 8 * 128].view(2, 8, 2, 64))
+    assert ta._strides(flat[8:8 + 2 * 8 * 128].view(2, 8, 2, 64)) \
+        == (1024, 128)
+    odd_f32 = torch.zeros(2, 8, 129)[..., :128].reshape(2, 8, 2, 64)
+    assert ta._strides(odd_f32) == (8 * 129, 129)
+    with pytest.raises(ValueError, match="dense"):
+        ta._strides(x.transpose(2, 3))
+    # o and do (the backward reads them in 16-byte pieces)
+    ta._check_dense(o=x, do=flat[8:8 + 2 * 8 * 128].view(2, 8, 2, 64))
+    with pytest.raises(ValueError, match="do must be contiguous"):
+        ta._check_dense(do=flat[4:4 + 2 * 8 * 128].view(2, 8, 2, 64))
+    with pytest.raises(ValueError, match="o must be contiguous"):
+        ta._check_dense(o=x.transpose(1, 2))
+
+
 def test_cpu_takes_the_plain_version_and_validates():
     q, k, v = (torch.randn(1, 8, 2, 64) for _ in range(3))
     before = (ta.train_attention_fwd.launches, ta.train_attention_dq.launches,
@@ -165,8 +239,19 @@ def _kernel_vs_plain(dev, shape, dtype, strided_v=False, seed=0):
     ((2, 257, 4, 100), torch.bfloat16, False),
     ((2, 100, 2, 64), torch.float32, False),
     ((3, 1, 2, 64), torch.float32, False),
+    # tile edges of the bf16 kernels (64 keys, 64 or 128 query rows)
+    ((3, 1, 2, 64), torch.bfloat16, True),
+    ((2, 65, 4, 64), torch.bfloat16, True),
+    ((2, 129, 4, 64), torch.bfloat16, True),
+    ((2, 577, 4, 64), torch.bfloat16, True),
+    ((3, 1, 2, 128), torch.bfloat16, True),
+    ((2, 65, 4, 128), torch.bfloat16, True),
+    ((2, 129, 4, 128), torch.bfloat16, True),
+    ((2, 577, 4, 128), torch.bfloat16, True),
 ], ids=["gpt-l-bf16", "d128-bf16", "d128-f32", "ragged-257", "pad-100",
-        "f32-100", "s1"])
+        "f32-100", "s1", "bf16-s1-d64", "bf16-s65-d64", "bf16-s129-d64",
+        "bf16-s577-d64", "bf16-s1-d128", "bf16-s65-d128", "bf16-s129-d128",
+        "bf16-s577-d128"])
 def test_kernels_match_plain_version(cuda, shape, dtype, strided_v):
     """Errors relative to each tensor's largest magnitude: f32 1e-5 (sums
     in another order); bf16 1e-2 for o (1-2 ulps of the largest output) and
