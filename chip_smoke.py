@@ -23,14 +23,16 @@ Phases, each of which raises on a failed check (exit code != 0):
 5. A teacher-forced comparison of kernels against plain versions over 64
    decode steps at GPT-L: bf16, W8A16 + int8 KV, and grouped W4 + bf16 KV.
 6. The W4A16 matmul (K3) against its plain version at every GPT-L layer
-   shape, per channel and grouped g128, B 16 and 80, bf16 x; f32 x and a
-   ragged group (K = 320); times beside the plain version, the bound and
-   `torch._weight_int4pack_mm` (tinygemm, B 16 and 80) where this torch
-   runs it.
-7. Chunk attention (K5) against its plain version: C 1 and 5, bf16 and f32
-   caches, per-row positions with 0, 7, 8 and 639 - C, GQA rep 2 and 4,
-   prefix padding, a backward position jump across two calls; times
-   beside the plain version, the bound and SDPA with the same row mask.
+   shape, per channel and grouped g128, B 16 and 80, bf16 x; f32 x, B 1,
+   17, 81 and 320 (the kernel's 8-row tiles and 96-row passes) and a
+   ragged group (K = 320); times at all five shapes, B 16 and 80, beside
+   the plain version, the bound and `torch._weight_int4pack_mm` (tinygemm)
+   where this torch runs it.
+7. Chunk attention (K5) against its plain version: C 1, 5 and 8, bf16 and
+   f32 caches, per-row positions with 0, 7, 8 and 639 - C, GQA rep 2 and
+   4, prefix padding, a backward position jump across two calls; times at
+   C 5, 1 and 8 beside the plain version, the bound, SDPA with the same
+   row mask, and the cache write + SDPA (K5 does both).
 8. The W4 sampling path: GPT-L 384, grouped W4 + bf16 KV, batch 8 + CFG
    2.0, 576 tokens, VQ-16 decode; counters exactly 5 * 24 * 575 (K3:
    prefill takes the dequantised fallback) and 24 * 575 (K1). (Phase 5
@@ -492,11 +494,12 @@ def w4_int4pack(blocks, scales, k):
 def check_w4_matmul(dev):
     """K3 against w4_matmul_ref at every GPT-L layer shape, per channel and
     grouped g128, B 16 (decode, draft) and 80 (a k = 4 verify), bf16 x;
-    plus f32 x and a ragged group (K = 320). Tolerance: one bf16 ulp
-    (2^-7) of the largest output for bf16 x, 1e-5 of it for f32 x (the
-    same f32 products summed in another order)."""
-    from llamagen_tpu_torch.ops.w4_matmul import (pack_w4, w4_dequant,
-                                                  w4_matmul, w4_matmul_ref)
+    plus f32 x, B 1, 17, 81 and 320 (the kernel's 8-row tiles and 96-row
+    passes) and a ragged group (K = 320). Tolerance: one bf16 ulp (2^-7)
+    of the largest output for bf16 x, 1e-5 of it for f32 x (the same f32
+    products summed in another order). Then the times (`time_w4_matmul`)."""
+    from llamagen_tpu_torch.ops.w4_matmul import (pack_w4, w4_matmul,
+                                                  w4_matmul_ref)
     g = torch.Generator(device=dev).manual_seed(13)
     worst = 0.0
     cases = [(name, k, n, pc, b, torch.bfloat16)
@@ -504,6 +507,10 @@ def check_w4_matmul(dev):
              for pc in (False, True) for b in (16, 80)]
     cases += [("wqkv", 1024, 3072, False, 16, torch.float32),
               ("w2", 2816, 1024, True, 80, torch.float32),
+              ("wqkv", 1024, 3072, False, 1, torch.bfloat16),
+              ("w1", 1024, 2816, False, 17, torch.bfloat16),
+              ("w2", 2816, 1024, False, 81, torch.float32),
+              ("wo", 1024, 1024, True, 320, torch.bfloat16),
               ("ragged", 320, 256, False, 16, torch.bfloat16),
               ("ragged", 320, 256, False, 16, torch.float32)]
     for name, k, n, pc, b, dtype in cases:
@@ -518,14 +525,23 @@ def check_w4_matmul(dev):
         tol = rel * ref.float().abs().max().item()
         label = (f"K3 w4_matmul {name} [{b},{k}]x[{k},{n}] "
                  f"{'per-channel' if pc else 'g128'} {str(dtype)[6:]} x")
-        log(f"{label}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        log(f"{label}: max_abs_err {err:.3g} (tol {tol:.3g}, "
+            f"{err / max(tol, 1e-30) * rel:.3g} of the largest output)")
         if not (err <= tol and out.dtype == dtype):
             raise AssertionError(f"{label} disagrees with the plain version")
         worst = max(worst, err)
+    return worst, time_w4_matmul(dev)
 
-    # times: grouped g128 (the quantize_gpt_params_w4k default), bf16 x,
-    # enough buffer sets per shape (>= 24, >= 128 MB) that the weights
-    # stream from memory, not from the 50 MB L2
+
+def time_w4_matmul(dev, full=True):
+    """K3 per call at the five GPT-L layer shapes, B 16 and 80: grouped
+    g128 (the quantize_gpt_params_w4k defaults), bf16 x, enough buffer sets
+    per shape (>= 24, >= 128 MB) that the weights stream from memory, not
+    from the 50 MB L2. With `full`, also the plain version, the bound and
+    `torch._weight_int4pack_mm` (tinygemm) on the same inputs."""
+    from llamagen_tpu_torch.ops.w4_matmul import (pack_w4, w4_dequant,
+                                                  w4_matmul, w4_matmul_ref)
+    g = torch.Generator(device=dev).manual_seed(14)
     timings = {}
     for name, (k, n) in GPT_L_MATMULS.items():
         sets = max(24, -(-128 * 2 ** 20 // (k * n // 2)))
@@ -534,6 +550,12 @@ def check_w4_matmul(dev):
         for b in (16, 80):
             x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
             ms = graph_ms([lambda w=w: w4_matmul(x, *w) for w in layers])
+            gbs = k * n / 2 / (ms * 1e-3) / 1e9
+            if not full:
+                timings[(name, b)] = dict(ms=ms)
+                log(f"K3 time {name} [{b},{k}]x[{k},{n}] g128: kernel "
+                    f"{ms:.4f} ms ({gbs:.0f} GB/s of packed weights)")
+                continue
             plain = graph_ms([lambda w=w: w4_matmul_ref(x, *w)
                               for w in layers[:24]])
             bnd_ms, by = bound(nbytes(*layers[0], x) + b * n * 2,
@@ -556,7 +578,6 @@ def check_w4_matmul(dev):
                                f"{name} B {b}", tinygemm)
             timings[(name, b)] = dict(ms=ms, plain=plain, bound=bnd_ms,
                                       by=by, library=lib)
-            gbs = k * n / 2 / (ms * 1e-3) / 1e9
             log(f"K3 time {name} [{b},{k}]x[{k},{n}] g128: kernel {ms:.4f} "
                 f"ms ({gbs:.0f} GB/s of packed weights, {sets} buffer "
                 f"sets), plain {plain:.4f} ms, bound {bnd_ms:.4f} ms ({by})"
@@ -566,7 +587,7 @@ def check_w4_matmul(dev):
                    f", bf16 torch.matmul on the dequantised weight "
                    f"{bf16:.4f} ms (context)"))
         del layers
-    return worst, timings
+    return timings
 
 
 def chunk_state(dev, b, h, h_kv, s, c, dtype, seed):
@@ -579,11 +600,12 @@ def chunk_state(dev, b, h, h_kv, s, c, dtype, seed):
 
 def check_chunk_attention(dev):
     """K5 against chunk_decode_attention_ref: B 16, 16 heads x 64, S 640,
-    C 1 (draft step) and 5 (k = 4 verify), bf16 and f32 caches, per-row
+    C 1 (draft step), 5 (k = 4 verify) and 8, bf16 and f32 caches, per-row
     positions with 0, 7, 8 and 639 - C among them, GQA rep 2 and 4, prefix
     padding, and a backward position jump across two calls. The output to
     4 bf16 ulps of its largest value (f32: 1e-5), the cache rows below
-    pos + C (and all others) exactly."""
+    pos + C (and all others) exactly. Then the times
+    (`time_chunk_attention`)."""
     from llamagen_tpu_torch.ops.chunk_attention import (
         chunk_decode_attention, chunk_decode_attention_ref)
     b, h, s = 16, 16, 640
@@ -610,7 +632,7 @@ def check_chunk_attention(dev):
             [(c, dt, 16, False) for c in (1, 5)
              for dt in (torch.bfloat16, torch.float32)]
             + [(5, torch.bfloat16, 8, False), (5, torch.bfloat16, 4, True),
-               (1, torch.bfloat16, 16, True)]):
+               (1, torch.bfloat16, 16, True), (8, torch.bfloat16, 16, True)]):
         q, kv_new, kv = chunk_state(dev, b, h, h_kv, s, c, dtype, 40 + i)
         pos = torch.randint(0, s - c + 1, (b,), generator=g, device=dev,
                             dtype=torch.int32)
@@ -632,15 +654,30 @@ def check_chunk_attention(dev):
     q2, kv2, _ = chunk_state(dev, b, h, h, s, 5, torch.bfloat16, 61)
     worst = max(worst, compare("backward jump, call 2 at pos 301", q2, kv2,
                                kv, pos + 1, None, h))
+    return worst, time_chunk_attention(dev)
 
-    # times at the main path's mean position, one buffer set per layer
+
+def time_chunk_attention(dev, full=True):
+    """K5 per call at the main path's mean position (pos 288), B 16, 16
+    heads x 64, S 640, bf16, C 5, 1 and 8, one buffer set per layer. With
+    `full`, also the plain version, the bound, SDPA with the same row mask
+    over the cache, and SDPA after the cache write it does not make
+    (`kv[:, pos:pos + C] = kv_new`, K5's whole work)."""
+    from llamagen_tpu_torch.ops.chunk_attention import (
+        chunk_decode_attention, chunk_decode_attention_ref)
+    b, h, s, pos = 16, 16, 640, 288
     timings = {}
-    pos = 288
-    for c in (5, 1):
+    for c in (5, 1, 8):
         states = [chunk_state(dev, b, h, h, s, c, torch.bfloat16, 100 + l)
                   for l in range(24)]
         ms = graph_ms([lambda st=st: chunk_decode_attention(
             st[0], st[1], st[2], pos, h) for st in states])
+        if not full:
+            timings[c] = dict(ms=ms)
+            log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S "
+                f"{s}: kernel {ms:.4f} ms")
+            del states
+            continue
         plain = graph_ms([lambda st=st: chunk_decode_attention_ref(
             st[0], st[1], st[2], pos, h) for st in states])
         q, kv_new, kv = states[0]
@@ -660,14 +697,24 @@ def check_chunk_attention(dev):
             [lambda i=i: F.scaled_dot_product_attention(
                 qs[i], ks[i], vs[i], attn_mask=mask)
              for i in range(len(states))]))
+
+        def write_then_sdpa(i):
+            states[i][2][:, pos:pos + c] = states[i][1]
+            return F.scaled_dot_product_attention(qs[i], ks[i], vs[i],
+                                                  attn_mask=mask)
+        lib_write = library_time("K5 library (cache write + SDPA)",
+                                 lambda: graph_ms(
+                                     [lambda i=i: write_then_sdpa(i)
+                                      for i in range(len(states))]))
         timings[c] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
-                          library=lib)
+                          library=lib, library_write=lib_write)
         log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S {s}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} "
             f"ms ({by}), SDPA with the row mask over the cache "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, the cache write "
+            f"+ SDPA {'n/a' if lib_write is None else f'{lib_write:.4f} ms'}")
         del states, qs, ks, vs
-    return worst, timings
+    return timings
 
 
 def run_w4_path(dev):

@@ -8,260 +8,460 @@
 // [NB, 2 * NSEG, BN] f32 (grouped: group g of half h covers weight rows
 // h * K/2 + [g * seg_rows, (g + 1) * seg_rows), the last one ragged).
 // Numerics as the Pallas body's default "seg" mode: x is rounded to bf16,
-// products and sums are f32, a group's scale multiplies the f32 partial
-// sum of its rows (per channel: the scale multiplies the whole sum), and
-// the result is rounded once to x's dtype. Here a scale multiplies the
-// partial sums of 8 packed rows, a piece of one group, and the pieces are
-// added; that differs from one sum per group only by f32 rounding.
+// products are exact in f32 (int4 levels and bf16 x are both exact in
+// bf16), each group's rows are summed in an f32 accumulator of its own that
+// its scale then multiplies before it is added to the total (per channel:
+// the scale multiplies the total once), and the result is rounded once to
+// x's dtype.
 //
-// What bounds it on the H100: reading the packed weights. At decode batch
-// (B = 16 for batch 8 + CFG, 80 in a k = 4 verify) the product does 4 * B
-// flops per packed byte, far below the ~295 flop/byte where the tensor
-// cores would become the limit. GPT-L reads ~6.4 MB of packed int4 per
-// layer and step (154 MB per step, ~46 us at 3.35 TB/s), half of W8A16.
+// What bounds it on the H100: reading the packed weights once. At decode
+// batch (B = 16 for batch 8 + CFG, 80 in a k = 4 verify) the product does
+// 4 * B flops per packed byte, far below the ~295 flop/byte where the
+// tensor cores would become the limit. A GPT-L layer matrix is 0.5-1.6 MB
+// of packed int4 (4-12 KB per SM), so a call is one round trip to memory
+// plus the launch: the design starts every load of a block at once and
+// makes one launch.
 //
-// What the design does about it: the dequantised matrix never exists, the
-// packed bytes are read once per 16 batch rows, and every byte serves two
-// weight rows. Each lane owns two adjacent output columns, so a warp reads
-// 64 contiguous bytes of a packed row; a block owns 64 columns (inside one
-// BN block) x 16 batch rows. K is split across blocks (grid z) so that even
-// N = 1024 gives ~2 blocks per SM; a block first stages its split's x (both
-// halves, rounded to bf16, as f32) in shared memory, then its eight warps
-// take 8 packed rows each of a 64-row chunk, the next chunk's weight bytes
-// loaded into registers while the current one is multiplied. A second
-// kernel sums the splits' f32 partials in order, then scales (per channel)
-// and rounds. Tensor cores, TMA and wider loads are later work.
+// What the design does about it:
+//   - Output columns on M, batch rows on N of `mma.sync.m16n8k16` (bf16 in,
+//     f32 accumulate): a block owns 64 columns and a range of packed rows
+//     for ALL batch rows (looping over passes of <= 96 rows with the weights
+//     kept in shared memory), so every packed byte is read by exactly one
+//     block whatever B is.
+//   - The block's weights, scales and x come in with 16-byte `cp.async`
+//     loads, all started up front (a block's share fits in shared memory).
+//   - The int4 levels are decoded in registers straight into the A
+//     fragment: since a product sums over k in any order, fragment k slots
+//     (2t, 2t+1, 2t+8, 2t+9) of lane (g, t) stand for packed rows 4t..4t+3
+//     and fragment rows g, g+8 of the warp's two m-tiles for columns
+//     4g..4g+3. A lane then reads one 32-bit word (4 columns) of each of 4
+//     packed rows; `prmt` pairs the bytes of one column, and a mask, an xor
+//     and one bf16x2 fma turn each nibble into its level (the bf16 bit
+//     pattern 0x4300 | (u ^ 8) is 128 + level + 8). One packed byte feeds
+//     two products: its low nibble against x[:, i], its high nibble against
+//     x[:, K/2 + i]. x is staged as bf16 rows and read 8 bytes a lane (the
+//     same 4 packed rows) as the B fragment.
+//   - Where N alone gives too few blocks, the packed rows are split across
+//     the blocks of a thread block cluster (<= 8, along grid x; each block's
+//     range a whole number of groups). Each block pushes its f32 partial
+//     into the shared memory of the blocks that sum it (distributed shared
+//     memory; rank j sums the j-th 1/ks of the [B, 64] tile), and one
+//     cluster barrier later every block sums its part in rank order and
+//     stores it: one launch, no workspace in device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kCols = 64;       // output columns per block: 32 lanes x 2
-constexpr int kRows = 16;       // batch rows per block
-constexpr int kChunk = 64;      // packed rows per round (8 per warp)
-constexpr int kPerWarp = kChunk / kWarps;
-constexpr int kMaxSplit = 256;  // packed rows one block stages
-constexpr int kXStride = 20;    // padded f32 row of staged x (16-byte aligned)
 constexpr int kThreads = kWarps * 32;
-constexpr int kSmem = 2 * kMaxSplit * kXStride;  // floats; >= the reduction
-static_assert(kSmem >= kWarps * kRows * kCols, "reduction buffer");
+constexpr int kCols = 64;              // output columns per block
+constexpr int kWRow = kCols + 16;      // padded shared row of packed bytes
+constexpr int kColPairs = kCols / 32;  // a warp's two m-tiles span 32 columns
+constexpr int kBatchGroups = kWarps / kColPairs;
+constexpr int kMaxNT = 3;              // 8-row n-tiles per warp and pass
+constexpr int kMaxPass = kBatchGroups * kMaxNT * 8;  // 96 batch rows
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSmem = 232448;       // 227 KB, the H100's per-block limit
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float to_bf16_f32(float v) { return bf16_round(v); }
-__device__ __forceinline__ float to_bf16_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// bf16 elements per staged x row: 4 * words must be 32 mod 128 bytes, so the
+// 8-byte B-fragment loads of a half-warp (4 rows x 4 lanes) hit 32 banks.
+__host__ __device__ inline int x_stride(int kb) {
+  const int w = kb / 2;
+  return 2 * (w + ((8 - w) & 31));
 }
 
-// The two int4 levels of one packed byte.
-__device__ __forceinline__ float lo_nibble(int8_t v) {
-  return static_cast<float>(((v & 0x0F) ^ 8) - 8);
-}
-__device__ __forceinline__ float hi_nibble(int8_t v) {
-  return static_cast<float>(static_cast<int>(v) >> 4);
+// Shared memory of one block: packed rows, scales, x (two halves), and the
+// slots that receive the cluster's f32 partials of the columns this block
+// sums (bc * 16 float4 units over the ranks, + kMaxCluster for rounding).
+// Mirrored by ops/w4_matmul.py::_smem_bytes.
+__host__ __device__ inline int smem_bytes(int kb, int bc, int ngb,
+                                          bool grouped) {
+  const int scales = (grouped ? 2 * ngb : 1) * kCols * 4;
+  return kb * kWRow + scales + 2 * bc * x_stride(kb) * 2 +
+         (bc * (kCols / 4) + kMaxCluster) * 16;
 }
 
-// seg_rows == 0: per-channel scales (R == 1).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// Two nibbles (bits 0-3 and 16-19 of q) -> bf16x2 levels in [-8, 7]:
+// 0x4300 | (u ^ 8) is the bf16 128 + level + 8; subtract 136 exactly.
+__device__ __forceinline__ uint32_t levels(uint32_t q) {
+  const uint32_t m = (q & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(m), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  uint2 u;
+  u.x = bf16_bits(v.x) | (static_cast<uint32_t>(bf16_bits(v.y)) << 16);
+  u.y = bf16_bits(v.z) | (static_cast<uint32_t>(bf16_bits(v.w)) << 16);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Stage x[b0 + r, h * K2 + k0 + j] as bf16 at xs[(h * bc + r) * xs_stride
+// + j] for r < rows8, j < kb; zero past B (r >= rows) and past the block's
+// live rows (j >= kbe).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-w4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ blocks,
-                 const float* __restrict__ scales, T* __restrict__ out,
-                 float* __restrict__ partial_out, int B, int K2, int N,
-                 int BN, int R, int seg_rows, int k_per_split) {
-  __shared__ __align__(16) float smem[kSmem];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kCols + 2 * lane;  // this lane's column pair
-  const int b0 = blockIdx.y * kRows;
-  const int rows = min(kRows, B - b0);
-  const bool live = n < N;  // N is a multiple of BN, BN of 64
-  const int blk = n / BN, c = n % BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K2, k_begin + k_per_split);
-  const int span = k_end - k_begin;
-  const int8_t* wcol = blocks + (size_t)blk * K2 * BN + c;
-
-  // Stage x for this split: rows [0, span) hold x[:, k_begin + i] (weights
-  // in low nibbles), rows [span, 2 span) x[:, K2 + k_begin + i] (high
-  // nibbles); each row holds the 16 batch rows, zero past B.
-  float(*xs)[kXStride] = reinterpret_cast<float(*)[kXStride]>(smem);
-  for (int i = threadIdx.x; i < kRows * 2 * span; i += kThreads) {
-    const int r = i / (2 * span), kk = i % (2 * span);
-    const int col = kk < span ? k_begin + kk : K2 + k_begin + kk - span;
-    xs[kk][r] = r < rows ? to_bf16_f32(x[(size_t)(b0 + r) * 2 * K2 + col])
-                         : 0.f;
-  }
-  __syncthreads();
-
-  float acc[kRows][2];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.f;
-
-  // A warp's 8 packed rows of a chunk lie inside one group (group starts
-  // are multiples of 64); rows past k_end load as zero.
-  char2 wv[kPerWarp], wnext[kPerWarp];
-  auto load = [&](char2* wd, int kc) {
-#pragma unroll
-    for (int j = 0; j < kPerWarp; ++j) {
-      const int k = kc + warp * kPerWarp + j;
-      wd[j] = (live && k < k_end)
-                  ? *reinterpret_cast<const char2*>(wcol + (size_t)k * BN)
-                  : make_char2(0, 0);
-    }
-  };
-  load(wv, k_begin);
-
-  for (int kc = k_begin; kc < k_end; kc += kChunk) {
-    if (kc + kChunk < k_end) load(wnext, kc + kChunk);
-    const int k0 = kc + warp * kPerWarp;  // the same for the whole warp
-    if (k0 < k_end) {
-      float plo[kRows][2], phi[kRows][2];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        plo[r][0] = plo[r][1] = phi[r][0] = phi[r][1] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPerWarp; ++j) {
-        const float l0 = lo_nibble(wv[j].x), l1 = lo_nibble(wv[j].y);
-        const float h0 = hi_nibble(wv[j].x), h1 = hi_nibble(wv[j].y);
-        const int kk = k0 - k_begin + j;
-        const float4* xl = reinterpret_cast<const float4*>(xs[kk]);
-        const float4* xh = reinterpret_cast<const float4*>(xs[span + kk]);
-#pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          const float4 a = xl[q], h = xh[q];
-          plo[4 * q + 0][0] += a.x * l0; plo[4 * q + 0][1] += a.x * l1;
-          plo[4 * q + 1][0] += a.y * l0; plo[4 * q + 1][1] += a.y * l1;
-          plo[4 * q + 2][0] += a.z * l0; plo[4 * q + 2][1] += a.z * l1;
-          plo[4 * q + 3][0] += a.w * l0; plo[4 * q + 3][1] += a.w * l1;
-          phi[4 * q + 0][0] += h.x * h0; phi[4 * q + 0][1] += h.x * h1;
-          phi[4 * q + 1][0] += h.y * h0; phi[4 * q + 1][1] += h.y * h1;
-          phi[4 * q + 2][0] += h.z * h0; phi[4 * q + 2][1] += h.z * h1;
-          phi[4 * q + 3][0] += h.w * h0; phi[4 * q + 3][1] += h.w * h1;
-        }
-      }
-      if (seg_rows == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          acc[r][0] += plo[r][0] + phi[r][0];
-          acc[r][1] += plo[r][1] + phi[r][1];
-        }
+__device__ void stage_x(const T* __restrict__ x, __nv_bfloat16* xs, int b0,
+                        int rows, int rows8, int K2, int k0, int kb, int kbe,
+                        int bc, bool vec) {
+  const int xstr = x_stride(kb);
+  const size_t K = 2 * static_cast<size_t>(K2);
+  // (row, chunk) pairs over all threads, the pair advanced by increments
+  // (rows rr: half h = rr >= rows8, batch row rr - h * rows8)
+  const int per_row = vec ? kb / 8 : kb;  // chunks (or elements) of a row
+  const int drr = kThreads / per_row, dch = kThreads % per_row;
+  int rr = threadIdx.x / per_row, ch = threadIdx.x % per_row;
+  for (int i = threadIdx.x; i < 2 * rows8 * per_row; i += kThreads) {
+    const int h = rr >= rows8, r = rr - h * rows8;
+    __nv_bfloat16* dst = xs + (h * bc + r) * xstr;
+    const T* src = x + (b0 + r) * K + h * K2 + k0;
+    if (vec) {  // K2 % 8 == 0: whole 8-element chunks, 16-byte aligned
+      const bool live = r < rows && ch * 8 < kbe;
+      if constexpr (sizeof(T) == 2) {
+        cp_async16(dst + ch * 8, live ? src + ch * 8 : x, live ? 16 : 0);
       } else {
-        const int g = k0 / seg_rows;
-        float2 slo = make_float2(0.f, 0.f), shi = slo;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
         if (live) {
-          slo = *reinterpret_cast<const float2*>(
-              scales + ((size_t)blk * R + g) * BN + c);
-          shi = *reinterpret_cast<const float2*>(
-              scales + ((size_t)blk * R + R / 2 + g) * BN + c);
+          a = *reinterpret_cast<const float4*>(src + ch * 8);
+          c = *reinterpret_cast<const float4*>(src + ch * 8 + 4);
         }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          acc[r][0] += plo[r][0] * slo.x + phi[r][0] * shi.x;
-          acc[r][1] += plo[r][1] * slo.y + phi[r][1] * shi.y;
-        }
+        uint4 u;
+        u.x = bf16_bits(a.x) | (static_cast<uint32_t>(bf16_bits(a.y)) << 16);
+        u.y = bf16_bits(a.z) | (static_cast<uint32_t>(bf16_bits(a.w)) << 16);
+        u.z = bf16_bits(c.x) | (static_cast<uint32_t>(bf16_bits(c.y)) << 16);
+        u.w = bf16_bits(c.z) | (static_cast<uint32_t>(bf16_bits(c.w)) << 16);
+        *reinterpret_cast<uint4*>(dst + ch * 8) = u;
       }
+    } else {  // any K2: one element at a time
+      reinterpret_cast<uint16_t*>(dst)[ch] =
+          r < rows && ch < kbe ? bf16_bits(src[ch]) : uint16_t{0};
     }
-#pragma unroll
-    for (int j = 0; j < kPerWarp; ++j) wv[j] = wnext[j];
-  }
-
-  // Sum the eight warps' partials (the x stage is reused for them).
-  __syncthreads();
-  float(*part)[kRows][kCols] = reinterpret_cast<float(*)[kRows][kCols]>(smem);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    part[warp][r][2 * lane] = acc[r][0];
-    part[warp][r][2 * lane + 1] = acc[r][1];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
-    const int r = i / kCols, cc = i % kCols;
-    const int col = blockIdx.x * kCols + cc;
-    if (r < rows && col < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi) s += part[wi][r][cc];
-      if (partial_out != nullptr)
-        partial_out[((size_t)blockIdx.z * B + b0 + r) * N + col] = s;
-      else  // per-channel scales [NB, 1, BN] are indexed by the column
-        out[(size_t)(b0 + r) * N + col] =
-            from_f32<T>(seg_rows == 0 ? s * scales[col] : s);
+    rr += drr;
+    ch += dch;
+    if (ch >= per_row) {
+      ch -= per_row;
+      ++rr;
     }
   }
 }
 
-// Split-K epilogue: sum the splits' f32 partials in order, scale (per
-// channel), round.
-template <typename T>
-__global__ void finish_kernel(const float* __restrict__ partial,
-                              const float* __restrict__ scales,
-                              T* __restrict__ out, int B, int N, int splits,
-                              bool per_channel) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * N) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * B * N + i];
-  out[i] = from_f32<T>(per_channel ? s * scales[i % N] : s);
+// grid (ks, N / 64), cluster (ks, 1, 1): block (rank, tile) owns columns
+// [64 tile, 64 tile + 64) and packed rows [rank * kb, rank * kb + kb) for
+// every batch row. seg: the group size (grouped), kb a multiple of it.
+template <typename T, bool kGrouped>
+__global__ void __launch_bounds__(kThreads)
+w4_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ blocks,
+              const float* __restrict__ scales, T* __restrict__ out, int B,
+              int K2, int N, int BN, int R, int seg, int kb, int bc,
+              bool vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x, ks = gridDim.x;
+  const int col0 = blockIdx.y * kCols;
+  const int blk = col0 / BN, c0 = col0 % BN;
+  const int k0 = rank * kb;
+  const int kbe = min(kb, K2 - k0);  // live packed rows (>= 1)
+  const int ngb = kGrouped ? kb / seg : 1;
+
+  unsigned char* ws = smem;
+  float* ss = reinterpret_cast<float*>(smem + kb * kWRow);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+      ss + (kGrouped ? 2 * ngb : 1) * kCols);
+  const int xstr = x_stride(kb);
+  float4* red = reinterpret_cast<float4*>(xs + 2 * bc * xstr);
+  // this block may receive pushes once every rank has arrived here
+  cluster_arrive_relaxed();
+  bool first = true;
+
+  // Packed rows (zero past the live rows: level 0 in both nibbles) and the
+  // block's scales, 16 bytes a copy.
+  for (int i = threadIdx.x; i < kb * (kCols / 16); i += kThreads) {
+    const int r = i / (kCols / 16), ch = i % (kCols / 16);
+    const bool live = r < kbe;
+    const int8_t* src =
+        blocks + (live ? (static_cast<size_t>(blk) * K2 + k0 + r) * BN + c0 +
+                             ch * 16
+                       : size_t{0});
+    cp_async16(ws + r * kWRow + ch * 16, src, live ? 16 : 0);
+  }
+  if (kGrouped) {
+    const int g0 = k0 / seg, half = R / 2;
+    for (int i = threadIdx.x; i < 2 * ngb * (kCols / 4); i += kThreads) {
+      const int ch = i % (kCols / 4), j = (i / (kCols / 4)) % ngb;
+      const int h = i / (ngb * (kCols / 4));
+      const bool live = g0 + j < half;
+      const float* src =
+          scales + (live ? (static_cast<size_t>(blk) * R + h * half + g0 +
+                            j) * BN + c0 + ch * 4
+                         : size_t{0});
+      cp_async16(ss + (h * ngb + j) * kCols + ch * 4, src, live ? 16 : 0);
+    }
+  } else if (threadIdx.x < kCols / 4) {
+    cp_async16(ss + threadIdx.x * 4, scales + col0 + threadIdx.x * 4, 16);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int cp = warp % kColPairs, bg = warp / kColPairs;
+  const unsigned char* wl = ws + (4 * t) * kWRow + cp * 32 + 4 * g;
+  const int steps = (kbe + 15) / 16;
+  const int seg_steps = kGrouped ? seg / 16 : steps;
+
+  for (int b0 = 0; b0 < B; b0 += bc) {
+    const int rows = min(bc, B - b0), nt = (rows + 7) / 8;
+    const int slots = (nt * 8 * (kCols / 4) + ks - 1) / ks;  // per rank
+    stage_x<T>(x, xs, b0, rows, nt * 8, K2, k0, kb, kbe, bc, vec);
+    cp_async_wait_all();
+    __syncthreads();
+
+    float tot[2][kMaxNT][4] = {};
+    if (bg < nt) {
+      const __nv_bfloat16* xl = xs + (bg * 8 + g) * xstr + 4 * t;
+      const __nv_bfloat16* xh = xl + bc * xstr;
+      for (int s0 = 0, grp = 0; s0 < steps; s0 += seg_steps, ++grp) {
+        float alo[2][kMaxNT][4] = {}, ahi[2][kMaxNT][4] = {};
+        const int s1 = min(steps, s0 + seg_steps);
+#pragma unroll 2
+        for (int s = s0; s < s1; ++s) {
+          const unsigned char* wp = wl + 16 * s * kWRow;
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wp);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wp + kWRow);
+          const uint32_t w2 =
+              *reinterpret_cast<const uint32_t*>(wp + 2 * kWRow);
+          const uint32_t w3 =
+              *reinterpret_cast<const uint32_t*>(wp + 3 * kWRow);
+          uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {  // m-tile m: columns 4g + 2m, +1
+            const uint32_t q[4] = {prmt(w0, w1, 0x0400u + 0x0101u * 2 * m),
+                                   prmt(w0, w1, 0x0501u + 0x0101u * 2 * m),
+                                   prmt(w2, w3, 0x0400u + 0x0101u * 2 * m),
+                                   prmt(w2, w3, 0x0501u + 0x0101u * 2 * m)};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              lo[m][e] = levels(q[e]);
+              hi[m][e] = levels(q[e] >> 4);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < kMaxNT; ++n) {
+            if (bg + n * kBatchGroups >= nt) break;
+            const int off = n * kBatchGroups * 8 * xstr + 16 * s;
+            const uint2 bl = *reinterpret_cast<const uint2*>(xl + off);
+            const uint2 bh = *reinterpret_cast<const uint2*>(xh + off);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              if (kGrouped) {
+                mma(alo[m][n], lo[m], bl.x, bl.y);
+                mma(ahi[m][n], hi[m], bh.x, bh.y);
+              } else {
+                mma(tot[m][n], lo[m], bl.x, bl.y);
+                mma(tot[m][n], hi[m], bh.x, bh.y);
+              }
+            }
+          }
+        }
+        if (kGrouped) {  // the group's scales times its accumulators
+          const float4 sl = *reinterpret_cast<const float4*>(
+              ss + grp * kCols + cp * 32 + 4 * g);
+          const float4 sh = *reinterpret_cast<const float4*>(
+              ss + (ngb + grp) * kCols + cp * 32 + 4 * g);
+          const float l4[4] = {sl.x, sl.y, sl.z, sl.w};
+          const float h4[4] = {sh.x, sh.y, sh.z, sh.w};
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int n = 0; n < kMaxNT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)  // e < 2: column 4g + 2m, else +1
+                tot[m][n][e] += alo[m][n][e] * l4[2 * m + e / 2] +
+                                ahi[m][n][e] * h4[2 * m + e / 2];
+        }
+      }
+      // Push this pass's partial to the ranks that sum it: float4 unit
+      // u = b * 16 + column / 4 goes to rank u / slots, slot (my rank,
+      // u % slots), so a warp's stores land in one or two ranks, contiguous.
+      if (first) cluster_wait();  // every rank has started
+#pragma unroll
+      for (int n = 0; n < kMaxNT; ++n) {
+        const int nn = bg + n * kBatchGroups;
+        if (nn >= nt) break;
+        const int u = (nn * 8 + 2 * t) * (kCols / 4) + cp * 8 + g;
+        const int u1 = u + kCols / 4;  // batch row + 1
+        *cluster.map_shared_rank(red + rank * slots + u % slots,
+                                 u / slots) =
+            make_float4(tot[0][n][0], tot[0][n][2], tot[1][n][0],
+                        tot[1][n][2]);
+        *cluster.map_shared_rank(red + rank * slots + u1 % slots,
+                                 u1 / slots) =
+            make_float4(tot[0][n][1], tot[0][n][3], tot[1][n][1],
+                        tot[1][n][3]);
+      }
+    } else if (first) {
+      cluster_wait();
+    }
+    first = false;
+    cluster_arrive();  // release: this block's pushes
+    cluster_wait();    // acquire: every push into this block
+
+    // sum the slots of this rank's units in rank order, scale (per
+    // channel), round
+    for (int i = threadIdx.x; i < slots; i += kThreads) {
+      const int u = rank * slots + i;
+      if (u >= rows * (kCols / 4)) break;
+      float4 v = red[i];
+      for (int q = 1; q < ks; ++q) {
+        const float4 p = red[q * slots + i];
+        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+      }
+      const int b = u / (kCols / 4), c = 4 * (u % (kCols / 4));
+      if (!kGrouped) {
+        v.x *= ss[c]; v.y *= ss[c + 1]; v.z *= ss[c + 2]; v.w *= ss[c + 3];
+      }
+      store4(out + static_cast<size_t>(b0 + b) * N + col0 + c, v);
+    }
+    // a next pass pushes into the slots only after every rank read them
+    if (b0 + bc < B) cluster.sync();
+  }
+}
+
+template <typename T, bool kGrouped>
+cudaError_t launch_one(const void* x, const void* blocks, const void* scales,
+                       void* out, int B, int K2, int N, int BN, int R,
+                       int seg, int ks, int kb, int bc, int smem,
+                       cudaStream_t st) {
+  auto kernel = w4_mma_kernel<T, kGrouped>;
+  static bool attr_set = false;  // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ks, N / kCols, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool vec =
+      K2 % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                            static_cast<const int8_t*>(blocks),
+                            static_cast<const float*>(scales),
+                            static_cast<T*>(out), B, K2, N, BN, R, seg, kb,
+                            bc, vec);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* blocks, const void* scales,
-                   void* out, void* partial, int B, int K2, int N, int BN,
-                   int R, int seg_rows, int k_per_split, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int splits = (K2 + k_per_split - 1) / k_per_split;
-  const bool per_channel = seg_rows == 0;
-  if (k_per_split % kChunk != 0 || k_per_split > kMaxSplit ||
-      BN % kCols != 0 || N % BN != 0 || (per_channel != (R == 1)) ||
-      (!per_channel && seg_rows % kChunk != 0) ||
-      (splits > 1) != (partial != nullptr))
+                   void* out, int B, int K2, int N, int BN, int R,
+                   int seg_rows, int ks, int kb, int bc, void* stream) {
+  const bool grouped = seg_rows != 0;
+  const int ngb = grouped ? kb / seg_rows : 1;
+  const int smem = smem_bytes(kb, bc, ngb, grouped);
+  const auto ptr_ok = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (B < 1 || K2 < 1 || BN % kCols != 0 || N % BN != 0 ||
+      grouped == (R == 1) || (grouped && (seg_rows % 16 != 0 ||
+                                          kb % seg_rows != 0)) ||
+      kb % 16 != 0 || ks < 1 || ks > kMaxCluster ||
+      static_cast<long>(ks - 1) * kb >= K2 ||
+      static_cast<long>(ks) * kb < K2 || bc < 8 || bc % 8 != 0 ||
+      bc > kMaxPass || smem > kMaxSmem || !ptr_ok(blocks) ||
+      !ptr_ok(scales) || !ptr_ok(out))
     return cudaErrorInvalidValue;
-  const dim3 grid(N / kCols, (B + kRows - 1) / kRows, splits);
-  w4_matmul_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(blocks),
-      static_cast<const float*>(scales), static_cast<T*>(out),
-      static_cast<float*>(partial), B, K2, N, BN, R, seg_rows, k_per_split);
-  if (splits > 1)
-    finish_kernel<T><<<(B * N + 255) / 256, 256, 0, st>>>(
-        static_cast<const float*>(partial),
-        static_cast<const float*>(scales), static_cast<T*>(out), B, N, splits,
-        per_channel);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return grouped ? launch_one<T, true>(x, blocks, scales, out, B, K2, N, BN,
+                                       R, seg_rows, ks, kb, bc, smem, st)
+                 : launch_one<T, false>(x, blocks, scales, out, B, K2, N, BN,
+                                        R, seg_rows, ks, kb, bc, smem, st);
 }
 
 }  // namespace
 
 // Pointers: x [B, 2 * K2], blocks [NB, K2, BN] int8, scales [NB, R, BN] f32,
-// out [B, N], partial (f32 [splits, B, N] workspace, null when K is not
-// split). seg_rows: the group size, 0 for per-channel scales (R == 1). K2 is
-// split into blocks of k_per_split packed rows (a multiple of 64, <= 256).
+// out [B, N]. seg_rows: the group size, 0 for per-channel scales (R == 1).
+// Geometry from ops/w4_matmul.py::w4_geometry: ks blocks per cluster, each
+// over kb packed rows (a multiple of 16 and of the group size), batch rows
+// in passes of bc (a multiple of 8, <= 96). Returns cudaErrorInvalidValue
+// for what the kernel does not take.
 extern "C" cudaError_t w4_matmul_bf16(const void* x, const void* blocks,
-                                      const void* scales, void* out,
-                                      void* partial, int B, int K2, int N,
-                                      int BN, int R, int seg_rows,
-                                      int k_per_split, void* stream) {
-  return launch<__nv_bfloat16>(x, blocks, scales, out, partial, B, K2, N, BN,
-                               R, seg_rows, k_per_split, stream);
+                                      const void* scales, void* out, int B,
+                                      int K2, int N, int BN, int R,
+                                      int seg_rows, int ks, int kb, int bc,
+                                      void* stream) {
+  return launch<__nv_bfloat16>(x, blocks, scales, out, B, K2, N, BN, R,
+                               seg_rows, ks, kb, bc, stream);
 }
 
 extern "C" cudaError_t w4_matmul_f32(const void* x, const void* blocks,
-                                     const void* scales, void* out,
-                                     void* partial, int B, int K2, int N,
-                                     int BN, int R, int seg_rows,
-                                     int k_per_split, void* stream) {
-  return launch<float>(x, blocks, scales, out, partial, B, K2, N, BN, R,
-                       seg_rows, k_per_split, stream);
+                                     const void* scales, void* out, int B,
+                                     int K2, int N, int BN, int R,
+                                     int seg_rows, int ks, int kb, int bc,
+                                     void* stream) {
+  return launch<float>(x, blocks, scales, out, B, K2, N, BN, R, seg_rows, ks,
+                       kb, bc, stream);
 }

@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -107,6 +109,12 @@ def c_function(name: str, n_pointers: int, n_ints: int, n_floats: int = 0):
                    + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The device's SM count (the kernels' launch geometry), asked once."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

@@ -27,7 +27,8 @@ are not ported: a Hopper kernel writes single rows.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -35,6 +36,10 @@ from llamagen_tpu_torch.ops import _build
 from llamagen_tpu_torch.ops.attention import batch_positions
 
 MAX_CHUNK = 8  # query rows the kernel takes (the JAX kernel's CP tile)
+# csrc/chunk_attention.cu's bf16 kernel (chunk_mma_kernel)
+_WARPS, _TILE, _STAGES = 4, 64, 3  # warps, rows a tile, ring stages
+_MAX_SPLIT = 8                     # blocks per cluster (kMaxSplit)
+_MAX_SMEM = 232448                 # 227 KB (kMaxSmem)
 
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -103,6 +108,56 @@ def chunk_decode_attention_ref(q: torch.Tensor, kv_new: torch.Tensor,
     return out.reshape(b, c, f).to(q.dtype)
 
 
+class ChunkGeometry(NamedTuple):
+    """Launch geometry of the bf16 kernel: `nq` query heads of one kv head
+    a block, `nsplit` blocks a cluster splitting the rows, `smem` bytes of
+    shared memory a block."""
+    nq: int
+    nsplit: int
+    smem: int
+
+
+def _smem_bytes(d: int, nq: int) -> int:
+    """The kernel's mma_smem_bytes: the k/v ring, or the states of the
+    warps and of the block."""
+    return max(2 * _STAGES * _TILE * d * 2,
+               (_WARPS + 1) * nq * 8 * (d + 2) * 4)
+
+
+def chunk_geometry(b: int, n_head: int, h_kv: int, s_len: int, d: int,
+                   sms: int) -> ChunkGeometry:
+    """The bf16 kernel's launch geometry, a pure function of the shapes and
+    the card's SM count: as many query heads a block as share a kv head
+    (at most 4, and nq * head_dim <= 256 to bound registers), then the
+    fewest splits (at most 8, each over >= 128 cache rows) that give every
+    SM a block. Each split more costs a merge: on the H100 at GPT-L (256
+    blocks) one split ran fastest (`PERF.md`)."""
+    rep = n_head // h_kv
+    nq = next(n for n in (4, 2, 1) if rep % n == 0 and n * d <= 256)
+    blocks = b * (n_head // nq)
+    nsplit = max(1, min(_MAX_SPLIT, -(-sms // blocks), -(-s_len // 128)))
+    return ChunkGeometry(nq, nsplit, _smem_bytes(d, nq))
+
+
+def chunk_split_rows(pos: int, pad: int, c: int, s_len: int,
+                     nsplit: int) -> List[Tuple[int, int]]:
+    """The rows [lo, hi) each split of the bf16 kernel reads (the kernel's
+    split_rows): [pad, min(pos + C, S)) in equal pieces of a multiple of 16
+    rows; a piece with hi <= lo reads nothing."""
+    end = min(pos + c, s_len)
+    total = max(0, end - pad)
+    per = (-(-total // nsplit) + 15) // 16 * 16
+    return [(pad + j * per, min(end, pad + (j + 1) * per))
+            for j in range(nsplit)]
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_geometry(b: int, n_head: int, h_kv: int, s_len: int, d: int,
+                     index: int) -> ChunkGeometry:
+    """The geometry per call shape and device, computed once."""
+    return chunk_geometry(b, n_head, h_kv, s_len, d, _build.sm_count(index))
+
+
 def chunk_decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
                            kv_cache: torch.Tensor, pos: Pos, n_head: int,
                            prefix_pad: Optional[torch.Tensor] = None
@@ -118,9 +173,12 @@ def chunk_decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     n_head:     query heads; query head h reads kv head h // (H / H_kv)
     prefix_pad: optional int32 [B]: positions < prefix_pad[b] are masked
 
-    On CUDA tensors this launches `csrc/chunk_attention.cu` (counted in
-    `chunk_decode_attention.launches`, one per call); on CPU tensors it
-    runs `chunk_decode_attention_ref`.
+    On CUDA tensors this runs `csrc/chunk_attention.cu` (counted in
+    `chunk_decode_attention.launches`, one per call): with q and the cache
+    in bf16 one launch on the tensor cores, the insert folded in; other
+    dtypes an insert launch, then the CUDA-core kernel. It raises on what
+    the kernels do not take. On CPU tensors it runs
+    `chunk_decode_attention_ref`.
     """
     b, c, f, d, f_kv, s_len = _check(q, kv_new, kv_cache, pos, n_head)
     if not q.is_cuda:
@@ -142,15 +200,22 @@ def chunk_decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     pad_t = None if prefix_pad is None else batch_positions(prefix_pad, b,
                                                             dev)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), kv_new.data_ptr(), kv_cache.data_ptr(),
+            pos_t.data_ptr(), None if pad_t is None else pad_t.data_ptr(),
+            out.data_ptr())
     name = f"chunk_attention_{_DTYPE_NAMES[q.dtype]}_" \
            f"{_DTYPE_NAMES[kv_cache.dtype]}"
-    fn = _build.c_function(name, 6, 6, 1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(fn(
-        q.data_ptr(), kv_new.data_ptr(), kv_cache.data_ptr(),
-        pos_t.data_ptr(), None if pad_t is None else pad_t.data_ptr(),
-        out.data_ptr(), b, c, s_len, f // d, f_kv // d, d, d ** -0.5,
-        stream), name)
+    if name == "chunk_attention_bf16_bf16":
+        geo = _launch_geometry(b, n_head, f_kv // d, s_len, d,
+                               dev.index or 0)
+        fn = _build.c_function(name, 6, 8, 1)
+        err = fn(*ptrs, b, c, s_len, n_head, f_kv // d, d, geo.nq,
+                 geo.nsplit, d ** -0.5, stream)
+    else:
+        fn = _build.c_function(name, 6, 6, 1)
+        err = fn(*ptrs, b, c, s_len, n_head, f_kv // d, d, d ** -0.5, stream)
+    _build.check(err, name)
     chunk_decode_attention.launches += 1
     return out
 

@@ -26,7 +26,8 @@ for Mosaic's DMA and are not ported: each `Linear` holds its own layer.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,8 +36,12 @@ from llamagen_tpu_torch.ops import _build
 
 SEG_ROWS = 128  # default group size (rows of one half per scale)
 BN_TARGET = 640  # widest column block pack_w4 picks
-_CHUNK = 64      # packed rows per round of csrc/w4_matmul.cu (kChunk)
-_MAX_SPLIT = 256  # packed rows one block of the kernel stages (kMaxSplit)
+# csrc/w4_matmul.cu's constants
+_COLS = 64            # output columns per block (kCols)
+_MAX_CLUSTER = 8      # blocks per cluster (kMaxCluster)
+_ROWS = 128           # packed rows a block takes where the cluster allows
+_MAX_PASS = 96        # batch rows per pass (kMaxPass)
+_MAX_SMEM = 232448    # shared memory per block, 227 KB (kMaxSmem)
 
 
 def _pick_bn(n: int) -> int:
@@ -140,9 +145,9 @@ def _levels(blocks: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=1).float()
 
 
-def _seg_rows_of(k2: int, scales: torch.Tensor) -> Optional[int]:
-    """None for per-channel scales, else the group size."""
-    r = scales.shape[-2]
+@functools.lru_cache(maxsize=None)
+def _seg_rows(k2: int, r: int) -> Optional[int]:
+    """None for per-channel scales (R == 1), else the group size."""
     return None if r == 1 else _infer_seg_rows(k2, r // 2)
 
 
@@ -151,7 +156,7 @@ def w4_dequant(blocks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     fallback of `matmul_any` and the tests)."""
     nb, k2, bn = blocks.shape
     lv = _levels(blocks)                                  # [NB, K, BN]
-    seg = _seg_rows_of(k2, scales)
+    seg = _seg_rows(k2, scales.shape[-2])
     if seg is None:
         w = lv * scales
     else:
@@ -177,7 +182,7 @@ def _check(x, blocks, scales) -> Tuple[int, int, int, Optional[int]]:
             or scales.dtype != torch.float32:
         raise ValueError(f"scales {tuple(scales.shape)} {scales.dtype} for "
                          f"blocks {tuple(blocks.shape)}")
-    seg = _seg_rows_of(k2, scales)
+    seg = _seg_rows(k2, scales.shape[-2])
     if seg is not None and scales.shape[1] != 2 * len(_segments(k2, seg)):
         raise ValueError(f"{scales.shape[1]} scale rows for K/2={k2}")
     return nb, k2, bn, seg
@@ -203,16 +208,69 @@ def w4_matmul_ref(x: torch.Tensor, blocks: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _k_per_split(b: int, k2: int, n: int, device: torch.device) -> int:
-    """Packed rows per block: a multiple of the kernel's 64-row chunk, at
-    most 256 (its x stage), split until the grid has about two blocks per
-    SM."""
-    chunks = -(-k2 // _CHUNK)
-    tiles = -(-n // 64) * -(-b // 16)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(-(-chunks * _CHUNK // _MAX_SPLIT),
-                 min(chunks, -(-2 * sms // tiles)))
-    return -(-chunks // splits) * _CHUNK
+class W4Geometry(NamedTuple):
+    """Launch geometry of `csrc/w4_matmul.cu`: a cluster of `ks` blocks
+    splits the packed rows of each 64-column tile, `kb` rows a block (a
+    multiple of 16 and of the group size); batch rows go in passes of `bc`
+    (a multiple of 8, <= 96); `smem` bytes of shared memory a block."""
+    ks: int
+    kb: int
+    bc: int
+    smem: int
+
+
+def _x_stride(kb: int) -> int:
+    """bf16 elements per staged x row (kernel's x_stride)."""
+    w = kb // 2
+    return 2 * (w + ((8 - w) & 31))
+
+
+def _smem_bytes(kb: int, bc: int, seg: Optional[int]) -> int:
+    """Shared memory of one block (the kernel's smem_bytes): packed rows,
+    scales, both halves of x in bf16, the slots of the f32 partials the
+    block sums."""
+    scales = (2 * (kb // seg) if seg else 1) * _COLS * 4
+    return kb * (_COLS + 16) + scales + 4 * bc * _x_stride(kb) \
+        + (bc * _COLS // 4 + _MAX_CLUSTER) * 16
+
+
+def w4_geometry(b: int, k2: int, n: int, bn: int, seg: Optional[int],
+                sms: int) -> W4Geometry:
+    """The kernel's launch geometry, a pure function of the shapes and the
+    card's SM count. The smallest cluster (at most 8 blocks, each over
+    whole groups) that gives the grid at least one block per SM and each
+    block at most 128 packed rows (a block's 16-row steps run one after
+    another: fewer are faster, `PERF.md`); the batch in as few passes of
+    equal size as 96 rows a pass allow, shrunk while a block's shared
+    memory passes 227 KB."""
+    if b < 1 or k2 < 1 or bn % _COLS or n % bn:
+        raise ValueError(f"no W4 geometry for B={b}, K/2={k2}, N={n}, "
+                         f"BN={bn}")
+    unit = seg or 16
+    units = -(-k2 // unit)
+    tiles = n // _COLS
+    per = units
+    for want in range(1, min(_MAX_CLUSTER, units) + 1):
+        per = -(-units // want)
+        if -(-units // per) * tiles >= sms and per * unit <= _ROWS:
+            break
+    kb = per * unit
+    ks = -(-k2 // kb)
+    passes = -(-b // _MAX_PASS)
+    bc = -(-(-(-b // passes)) // 8) * 8
+    while _smem_bytes(kb, bc, seg) > _MAX_SMEM and bc > 8:
+        bc -= 8
+    if _smem_bytes(kb, bc, seg) > _MAX_SMEM:
+        raise ValueError(f"K/2={k2} needs {kb} packed rows a block: more "
+                         f"shared memory than a block has")
+    return W4Geometry(ks, kb, bc, _smem_bytes(kb, bc, seg))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_geometry(b: int, k2: int, n: int, bn: int, seg: Optional[int],
+                     index: int) -> W4Geometry:
+    """The geometry per call shape and device, computed once."""
+    return w4_geometry(b, k2, n, bn, seg, _build.sm_count(index))
 
 
 def w4_matmul(x: torch.Tensor, blocks: torch.Tensor,
@@ -220,7 +278,7 @@ def w4_matmul(x: torch.Tensor, blocks: torch.Tensor,
     """x [B, K] (bf16/f32) @ dequant(blocks [NB, K/2, BN], scales) -> [B, N]
     in x's dtype.
 
-    On a CUDA tensor this launches `csrc/w4_matmul.cu` (counted in
+    On a CUDA tensor this launches `csrc/w4_matmul.cu` once (counted in
     `w4_matmul.launches`) and raises on what the kernel does not take; on
     a CPU tensor it computes `w4_matmul_ref`.
     """
@@ -232,27 +290,20 @@ def w4_matmul(x: torch.Tensor, blocks: torch.Tensor,
     if name is None:
         raise TypeError(f"w4_matmul takes bf16 or f32 activations, "
                         f"not {x.dtype}")
-    if bn % 64:
-        raise ValueError(f"block width {bn} must be a multiple of 64")
     if not (blocks.is_cuda and scales.is_cuda
             and x.device == blocks.device == scales.device):
         raise ValueError("x, blocks and scales must be on one CUDA device")
     b, n = x.shape[0], nb * bn
+    geo = _launch_geometry(b, k2, n, bn, seg, x.device.index or 0)
     x = x.contiguous()
     blocks = blocks.contiguous()
     scales = scales.contiguous()
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
-    k_per_split = _k_per_split(b, k2, n, x.device)
-    splits = -(-k2 // k_per_split)
-    partial = (torch.empty((splits, b, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    fn = _build.c_function(name, 5, 7)
+    fn = _build.c_function(name, 4, 9)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), blocks.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(),
-                    None if partial is None else partial.data_ptr(),
-                    b, k2, n, bn, scales.shape[1], seg or 0, k_per_split,
-                    stream), name)
+                    out.data_ptr(), b, k2, n, bn, scales.shape[1], seg or 0,
+                    geo.ks, geo.kb, geo.bc, stream), name)
     w4_matmul.launches += 1
     return out
 

@@ -17,7 +17,10 @@ Each is timed on the host clock (ending in a device sync), then traced with
 `torch.profiler`; reported per decode step or per verify round: wall ms,
 device busy ms (the union of kernel intervals, so overlapping kernels
 count once), the idle share, kernels launched, and device ms by group (K1
-decode attention, K3 W4 matmul, K5 chunk attention, cuBLAS, the rest).
+decode attention, K3 W4 matmul, K5 chunk attention, the separate insert and
+split-K launches, cuBLAS, the rest). Then the host cost of one wrapper
+call (`w4_matmul` at wqkv B 16, `chunk_decode_attention` at C 5, pos
+288): host µs per call over 2000 calls enqueued back to back.
 Prints a JSON object as its last line (and writes it to `out.json` when
 given). Needs a CUDA device.
 """
@@ -38,13 +41,14 @@ from bench_torch_train import _union_us  # noqa: E402
 
 def _group(name: str) -> str:
     low = name.lower()
-    for key, group in (("decode_attn", "K1 decode attention"),
-                       ("w4_matmul", "K3 W4 matmul"),
-                       ("chunk_attn", "K5 chunk attention")):
-        if key in low:
+    for keys, group in ((("decode_attn",), "K1 decode attention"),
+                        (("w4_mma", "w4_matmul"), "K3 W4 matmul"),
+                        (("chunk_mma", "chunk_attn"), "K5 chunk attention")):
+        if any(k in low for k in keys):
             return group
-    if "insert_kernel" in low or "finish_kernel" in low:
-        return "K1/K3/K5 insert and split-K launches"
+    if "insert_kernel" in low or "insert_flush" in low \
+            or "finish_kernel" in low:
+        return "K1/K2/K5 insert and split-K launches"
     if "gemm" in low or "cutlass" in low or "xmma" in low \
             or low.startswith("nvjet"):
         return "matmul (cuBLAS)"
@@ -75,6 +79,33 @@ def _profile(fn):
     return {"units": units, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall, "kernels": len(kernels) / units,
             "device_ms_by_group": groups}
+
+
+def _wrapper_host_us(w4_model, cache, dev, calls=2000):
+    """Host µs per wrapper call, enqueued back to back (the device work of
+    a call is shorter than its host cost, so the queue never fills)."""
+    from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.w4_matmul import w4_matmul
+    lin = w4_model.layers[0].attention.wqkv
+    x = torch.randn(16, lin.weight_w4b.shape[1] * 2, device=dev,
+                    dtype=torch.bfloat16)
+    q = torch.randn(16, 5, 1024, device=dev, dtype=torch.bfloat16)
+    kv_new = torch.randn(16, 5, 2048, device=dev, dtype=torch.bfloat16)
+    kv = cache.kv[0]
+    out = {}
+    for name, fn in (("w4_matmul", lambda: w4_matmul(x, lin.weight_w4b,
+                                                     lin.weight_w4s)),
+                     ("chunk_decode_attention", lambda: chunk_decode_attention(
+                         q, kv_new, kv, 288, 16))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def main(argv):
@@ -131,6 +162,7 @@ def main(argv):
     res["w4_step"] = _profile(w4_steps)
     spec()
     res["spec_round"] = _profile(spec)
+    res["host_us_per_call"] = _wrapper_host_us(w4, cache, dev)
     for path in ("w4_step", "spec_round"):
         r = res[path]
         print(f"{path} (x{r['units']}): wall {r['wall_ms']:.2f} ms, device "
@@ -139,6 +171,7 @@ def main(argv):
         for g, ms in sorted(r["device_ms_by_group"].items(),
                             key=lambda kv: -kv[1]):
             print(f"  {ms:8.3f} ms  {g}")
+    print(f"host us per wrapper call: {res['host_us_per_call']}")
     line = json.dumps(res)
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

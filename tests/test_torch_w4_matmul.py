@@ -99,6 +99,93 @@ def test_w4_matmul_ref_matches_pallas(k, n, per_channel, group, dtype):
     assert torch.equal(same, out) and w4.w4_matmul.launches == before
 
 
+def emulate_kernel(x, blocks, scales, sms=132):
+    """The CUDA kernel's order of sums, in f32 torch: x rounded to bf16; for
+    each rank of the cluster (`w4_geometry`), its packed rows in 16-row
+    steps, each step's 16 products summed and added to the accumulator of
+    its group and half (per channel: to the rank's total), each group's two
+    accumulators times their scales added to the rank's total; the ranks'
+    partials summed in rank order; per channel the scale once; one
+    rounding to x's dtype."""
+    nb, k2, bn = blocks.shape
+    n = nb * bn
+    seg = w4._seg_rows(k2, scales.shape[1])
+    geo = w4.w4_geometry(x.shape[0], k2, n, bn, seg, sms)
+    xb = x.to(torch.bfloat16).float()
+    lv = w4._levels(blocks).permute(1, 0, 2).reshape(2 * k2, n)
+    sc = scales.permute(1, 0, 2).reshape(scales.shape[1], n)
+    step_rows = seg or geo.kb
+    total = torch.zeros(x.shape[0], n)
+    for rank in range(geo.ks):
+        k0, k1 = rank * geo.kb, min(k2, (rank + 1) * geo.kb)
+        part = torch.zeros(x.shape[0], n)
+        for g0 in range(k0, k1, step_rows):
+            acc = [torch.zeros(x.shape[0], n) for _ in range(2)]
+            for s0 in range(g0, min(k1, g0 + step_rows), 16):
+                for h in range(2):
+                    rows = slice(h * k2 + s0, h * k2 + min(k1, s0 + 16))
+                    if seg:
+                        acc[h] = acc[h] + xb[:, rows] @ lv[rows]
+                    else:
+                        part = part + xb[:, rows] @ lv[rows]
+            if seg:
+                nseg = scales.shape[1] // 2
+                part = part + (acc[0] * sc[g0 // seg]
+                               + acc[1] * sc[nseg + g0 // seg])
+        total = total + part
+    if not seg:
+        total = total * sc[0]
+    return total.to(x.dtype)
+
+
+@pytest.mark.parametrize("b", [1, 16, 17, 80])
+@pytest.mark.parametrize("k,n,per_channel,group", PACKINGS, ids=PACK_IDS)
+def test_kernel_order_of_sums_matches_pallas(k, n, per_channel, group, b):
+    """The kernel's order of sums (emulated on the CPU) against the Pallas
+    kernel in interpret mode, f32 x: 1e-5 of the largest output, the f32
+    tolerance the card holds the kernel to."""
+    w = _weights(k, n, k + n + b)
+    x = np.random.RandomState(b).randn(b, k).astype(np.float32)
+    blocks, scales = _torch_pack(w, per_channel, group)
+    ref = np.asarray(jax.jit(lambda a, bl, sc: jw4.w4_matmul(
+        a, bl, sc, interpret=True))(jnp.asarray(x), jnp.asarray(
+            blocks.numpy()), jnp.asarray(scales.numpy())))
+    # a cluster of several ranks at these small N: few SMs to fill
+    out = emulate_kernel(torch.tensor(x), blocks, scales, sms=16)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+GPT_L = {"wqkv": (1024, 3072), "wo": (1024, 1024), "w1": (1024, 2816),
+         "w2": (2816, 1024)}
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["g128", "per-channel"])
+@pytest.mark.parametrize("name", list(GPT_L) + ["ragged"])
+def test_kernel_geometry(name, per_channel):
+    """The launch geometry at B 1..320 for every GPT-L shape (w3 is w1's)
+    and the ragged K = 320: the column tiles and the cluster's packed-row
+    ranges cover N and K/2 exactly, every 16-row step lies inside one
+    group, at most 8 blocks a cluster, batch passes of a multiple of 8
+    rows (<= 96) that cover B, shared memory <= 227 KB."""
+    k, n = GPT_L.get(name, (320, 256))
+    k2, bn = k // 2, w4._pick_bn(n)
+    seg = None if per_channel else 128
+    for b in range(1, 321):
+        geo = w4.w4_geometry(b, k2, n, bn, seg, 132)
+        assert n % 64 == 0  # the grid's n // 64 column tiles cover N
+        assert 1 <= geo.ks <= 8 and geo.kb % 16 == 0
+        assert (geo.ks - 1) * geo.kb < k2 <= geo.ks * geo.kb
+        if seg:
+            assert geo.kb % seg == 0
+            for s0 in range(0, k2, 16):  # a step's rows share one group
+                assert s0 // seg == (min(k2, s0 + 16) - 1) // seg
+        assert geo.bc % 8 == 0 and 8 <= geo.bc <= 96
+        assert -(-b // geo.bc) * geo.bc >= b
+        assert geo.smem <= 232448
+
+
 def test_matmul_any_w4_branches_match_jax():
     """Rank-2 x takes the W4 product (x rounded to bf16), rank-3 x the
     plain dequantised product (x not rounded), as in JAX."""
@@ -181,14 +268,17 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 16, 80])
-@pytest.mark.parametrize("k,n,per_channel", [
-    (1024, 3072, False), (1024, 1024, True), (2816, 1024, False),
-    (1024, 2816, True), (320, 256, False)])
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 80, 81, 320])
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["g128", "per-channel"])
+@pytest.mark.parametrize("k,n", [(1024, 3072), (1024, 1024), (2816, 1024),
+                                 (1024, 2816), (320, 256)],
+                         ids=["wqkv", "wo", "w2", "w1", "ragged"])
 def test_cuda_kernel_matches_plain(cuda, b, k, n, per_channel):
-    """The CUDA kernel against w4_matmul_ref on the card: bf16 to one
-    output ulp, f32 to 1e-5 of the largest output (sums in another
-    order)."""
+    """The CUDA kernel against w4_matmul_ref on the card, at every GPT-L
+    layer shape and the ragged K = 320, batch rows across the kernel's
+    8-row tiles and 96-row passes: bf16 to one output ulp, f32 to 1e-5 of
+    the largest output (sums in another order); one launch per call."""
     g = torch.Generator(device=cuda).manual_seed(k + n + b)
     blocks, scales = w4.pack_w4(
         torch.randn(k, n, generator=g, device=cuda) * 0.02,
@@ -202,3 +292,14 @@ def test_cuda_kernel_matches_plain(cuda, b, k, n, per_channel):
         assert out.dtype == dtype and w4.w4_matmul.launches == before + 1
         tol = rel * ref.float().abs().max().item()
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_raises_on_what_it_does_not_take(cuda):
+    """A CUDA tensor the kernel cannot take raises; nothing falls back."""
+    blocks, scales = w4.pack_w4(torch.randn(256, 256, device=cuda))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        w4.w4_matmul(torch.zeros(4, 256, device=cuda, dtype=torch.float16),
+                     blocks, scales)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        w4.w4_matmul(torch.zeros(4, 256, device=cuda), blocks.cpu(), scales)
