@@ -14,25 +14,32 @@
 //     stored as bf16 -- the JAX recent-window flush (attention.py:274-309).
 // The cache layout is the JAX one: [B, S, 2 * F_kv], k in [0, F_kv), v in
 // [F_kv, 2 * F_kv). Scales are [B, S, 2] (k, v) instead of the TPU's
-// lane-broadcast [B, S, 128].
+// lane-broadcast [B, S, 128]. head_dim 64, 100 or 128.
 //
-// Race hazard: blocks of one launch run in no order, and every head's block
-// reads the row this step inserts. So the insert (and the int8 flush, which
-// reads the whole tail) is its own launch, ahead of the attention launch on
-// the same stream; one block per batch row does insert then flush, so the
-// flush sees the new tail row after a __syncthreads. The attention launch
-// only reads. Whether a row flushes is decided on the device from pos.
+// What bounds it on the H100: reading the cache. Each kv head's rows <= pos
+// are read once per group of query heads that share it; at GPT-L (B = 16,
+// 16 heads, head_dim 64, pos ~288) an int8 cache moves ~4.7 MB per layer and
+// step (~1.4 us at 3.35 TB/s), a bf16 cache ~9.4 MB. Flops are ~2 per byte,
+// far below the tensor-core line, so what is left is latency: the design
+// keeps many 16-byte loads in flight and makes one launch per call.
 //
-// What bounds it on the H100: reading the cache. One block per (batch row,
-// query head) streams that head's k and v lanes for the rows <= pos; at
-// GPT-L (B = 16, 16 heads, head_dim 64) an int8 cache averages ~9.4 MB per
-// layer and step. Flops are ~2 per byte, far below the tensor-core line.
-//
-// What the design does about it: rows are read once per query head, lanes
-// of a warp cover one row's head_dim contiguously (coalesced), and the
-// eight warps of a block take interleaved rows with their own online
-// softmax state, merged once at the end. Rows past pos are never read.
-// Split-K over rows (flash-decoding) and wider per-lane loads are later work.
+// One launch per call in every entry; the insert (and the int8 flush) is
+// folded in: the attention takes row pos from kv_new, not from the cache or
+// the tail, so the block that writes it races no reader (attention_mma.cuh
+// has the full argument, the flush included).
+//   - bf16 q, int8 cache (the W8A16 + int8-KV operating point): the
+//     tensor-core kernel of attention_mma.cuh (`attn_mma_kernel<.., true>`):
+//     int8 tiles through a `cp.async` ring, turned into bf16 in shared
+//     memory, S^T = K Q^T and O^T += V^T P^T on `mma.sync`, the k scale on
+//     the score, the v scale folded into p before its bf16 rounding.
+//   - bf16 q, bf16 cache: K5's entry `chunk_attention_bf16_bf16`
+//     (csrc/chunk_attention.cu) at C = 1, called by the wrapper.
+//   - the f32 and mixed-dtype entries (f32 q, or an f32 cache): the CUDA-core
+//     kernel below, one block per (query head, batch row), lanes across
+//     head_dim, eight warps on interleaved rows with their own online softmax
+//     state, merged at the end; its first block of each kv head writes the
+//     row, and at a flush each block quantises its share of the 64 (row,
+//     half) tasks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,100 +47,32 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int kTail = 32;   // exact int8 tail rows (JAX RECENT_INT8)
+using namespace kutil;
+using attn_mma::flush_task;
+using attn_mma::kTail;
+
 constexpr int kWarps = 8;
 constexpr int kBatch = 4;   // rows a warp loads before it uses them
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// bf16/f32 cache: cache[b, pos[b]] = kv_new[b] (converted to the cache type)
-template <typename T, typename C>
-__global__ void insert_kernel(const T* __restrict__ kv_new,
-                              C* __restrict__ cache,
-                              const int* __restrict__ pos, int S, int row) {
-  const int b = blockIdx.x;
-  C* dst = cache + ((size_t)b * S + pos[b]) * row;
-  for (int i = threadIdx.x; i < row; i += blockDim.x)
-    dst[i] = from_f32<C>(to_f32(kv_new[(size_t)b * row + i]));
-}
-
-// int8 cache: tail[b, pos % 32] = kv_new[b]; at pos % 32 == 31 quantise the
-// 32 tail rows into cache rows [bnd, bnd + 32) with bf16 scales.
-template <typename T>
-__global__ void insert_flush_int8_kernel(const T* __restrict__ kv_new,
-                                         T* __restrict__ tail,
-                                         int8_t* __restrict__ cache,
-                                         __nv_bfloat16* __restrict__ scales,
-                                         const int* __restrict__ pos, int S,
-                                         int f_kv) {
-  const int b = blockIdx.x;
-  const int row = 2 * f_kv;
-  const int j = pos[b] % kTail;
-  const int bnd = pos[b] - j;
-  T* trow = tail + ((size_t)b * kTail + j) * row;
-  for (int i = threadIdx.x; i < row; i += blockDim.x)
-    trow[i] = kv_new[(size_t)b * row + i];
-  if (j != kTail - 1) return;  // the same for every thread of the block
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int task = warp; task < 2 * kTail; task += n_warps) {
-    const int r = task / 2, half = task % 2;
-    const T* src = tail + ((size_t)b * kTail + r) * row + half * f_kv;
-    float amax = 0.f;
-    for (int i = lane; i < f_kv; i += 32)
-      amax = fmaxf(amax, fabsf(to_f32(src[i])));
-    amax = warp_max(amax);
-    const float sc = amax / 127.0f + 1e-8f;
-    int8_t* dst = cache + ((size_t)b * S + bnd + r) * row + half * f_kv;
-    for (int i = lane; i < f_kv; i += 32) {
-      const float qv = rintf(to_f32(src[i]) / sc);
-      dst[i] = static_cast<int8_t>(fminf(fmaxf(qv, -127.f), 127.f));
-    }
-    if (lane == 0)
-      scales[((size_t)b * S + bnd + r) * 2 + half] = __float2bfloat16_rn(sc);
-  }
-}
-
 // Online-softmax walk of one warp over rows lo + warp, lo + warp + 8, ...
-// below hi of one batch row's buffer (`base`, `stride` elements per row).
-// The warp loads kBatch rows' k and v (and scales) before it uses them, so
-// it waits for memory about once per kBatch rows. kScaled: int8 rows with
-// per-row (k, v) bf16 scales folded into the score and the probability.
-template <typename R, bool kScaled, int EPL>
+// below hi of one buffer (`base`, `stride` elements per row). The warp loads
+// kBatch rows' k and v (and scales) before it uses them, so it waits for
+// memory about once per kBatch rows. Values are read as R and rounded
+// through Q (the cache type a row is stored in before it is read: kv_new's
+// row as the cache holds it). kScaled: int8 rows with per-row (k, v) bf16
+// scales folded into the score and the probability. Lane elements e with
+// lane * EPL + e >= D are idle (zero).
+template <typename R, typename Q, bool kScaled, int D>
 __device__ __forceinline__ void attend_rows(
     const R* __restrict__ base, int stride,
     const __nv_bfloat16* __restrict__ scales, int lo, int hi, int warp,
-    int koff, int voff, const float (&qv)[EPL], float& m, float& l,
-    float (&acc)[EPL]) {
+    int lane, int koff, int voff, const float (&qv)[(D + 31) / 32],
+    float& m, float& l, float (&acc)[(D + 31) / 32]) {
+  constexpr int EPL = (D + 31) / 32;
   for (int s0 = lo + warp; s0 < hi; s0 += kWarps * kBatch) {
     float kf[kBatch][EPL], vf[kBatch][EPL], ks[kBatch], vs[kBatch];
 #pragma unroll
@@ -142,8 +81,9 @@ __device__ __forceinline__ void attend_rows(
       const R* row = base + (size_t)s * stride;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        kf[r][e] = to_f32(row[koff + e]);
-        vf[r][e] = to_f32(row[voff + e]);
+        const bool live = lane * EPL + e < D;
+        kf[r][e] = live ? to_f32(from_f32<Q>(to_f32(row[koff + e]))) : 0.f;
+        vf[r][e] = live ? to_f32(from_f32<Q>(to_f32(row[voff + e]))) : 0.f;
       }
       ks[r] = vs[r] = 1.f;
       if constexpr (kScaled) {
@@ -170,45 +110,74 @@ __device__ __forceinline__ void attend_rows(
   }
 }
 
-// One block per (query head, batch row); EPL = head_dim / 32 elements per
-// lane. Reads only: rows [pad, bnd) from the cache, and for int8 caches rows
-// [max(pad, bnd), pos] from the tail.
-template <typename T, typename C, int EPL>
+// The f32 and mixed-dtype entries: one block per (query head, batch row).
+// Reads rows [pad, bnd) from the cache, for int8 caches rows
+// [max(pad, bnd), pos) from the tail, and row pos from kv_new (rounded to
+// the cache dtype for bf16/f32 caches, as the cache would hold it).
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_attn_kernel(const T* __restrict__ q, const C* __restrict__ cache,
-                   const __nv_bfloat16* __restrict__ scales,
-                   const T* __restrict__ tail, const int* __restrict__ pos,
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv_new,
+                   C* __restrict__ cache, __nv_bfloat16* __restrict__ scales,
+                   T* __restrict__ tail, const int* __restrict__ pos,
                    const int* __restrict__ pad, T* __restrict__ out, int S,
                    int H, int H_kv, float scale) {
   constexpr bool kInt8 = std::is_same<C, int8_t>::value;
-  constexpr int D = 32 * EPL;
+  constexpr int EPL = (D + 31) / 32;
+  using Round = typename std::conditional<kInt8, T, C>::type;
   __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][D];
+  __shared__ float sm_acc[kWarps][32 * EPL];
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int f = H * D, f_kv = H_kv * D, row = 2 * f_kv;
-  const int kvh = h / (H / H_kv);
+  const int rep = H / H_kv, kvh = h / rep;
   const int p = pos[b];
   const int pd = pad == nullptr ? 0 : pad[b];
-  const int bnd = kInt8 ? p - p % kTail : p + 1;
+  const int j = p % kTail;
+  const int bnd = kInt8 ? p - j : p;
+  const T* new_b = kv_new + (size_t)b * row;
+
+  // the insert: row pos of this kv head, by the kv head's first block
+  if (h % rep == 0) {
+    for (int i = threadIdx.x; i < 2 * D; i += kWarps * 32) {
+      const int off = (i / D) * f_kv + kvh * D + i % D;
+      if constexpr (kInt8)
+        tail[((size_t)b * kTail + j) * row + off] = new_b[off];
+      else
+        cache[((size_t)b * S + p) * row + off] =
+            from_f32<C>(to_f32(new_b[off]));
+    }
+  }
+  if constexpr (kInt8) {  // the flush: this block's share of the 64 tasks
+    if (j == kTail - 1)
+      for (int task = h + H * warp; task < 2 * kTail; task += H * kWarps)
+        flush_task<T>(tail + (size_t)b * kTail * row, new_b,
+                      cache + ((size_t)b * S + bnd) * row,
+                      scales + ((size_t)b * S + bnd) * 2, task, f_kv, lane);
+  }
+
   const int koff = kvh * D + lane * EPL;
   const int voff = f_kv + koff;
-
   float qv[EPL], acc[EPL];
 #pragma unroll
   for (int e = 0; e < EPL; ++e) {
-    qv[e] = to_f32(q[(size_t)b * f + h * D + lane * EPL + e]) * scale;
+    qv[e] = lane * EPL + e < D
+                ? to_f32(q[(size_t)b * f + h * D + lane * EPL + e]) * scale
+                : 0.f;
     acc[e] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
-  attend_rows<C, kInt8, EPL>(cache + (size_t)b * S * row, row,
-                             kInt8 ? scales + (size_t)b * S * 2 : nullptr,
-                             pd, bnd, warp, koff, voff, qv, m, l, acc);
+  attend_rows<C, float, kInt8, D>(
+      cache + (size_t)b * S * row, row,
+      kInt8 ? scales + (size_t)b * S * 2 : nullptr, pd, bnd, warp, lane,
+      koff, voff, qv, m, l, acc);
   if constexpr (kInt8)
-    attend_rows<T, false, EPL>(tail + (size_t)b * kTail * row, row, nullptr,
-                               max(pd, bnd) - bnd, p - bnd + 1, warp, koff,
-                               voff, qv, m, l, acc);
+    attend_rows<T, T, false, D>(tail + (size_t)b * kTail * row, row,
+                                nullptr, max(pd, bnd) - bnd, j, warp, lane,
+                                koff, voff, qv, m, l, acc);
+  if (p >= pd)
+    attend_rows<T, Round, false, D>(new_b, row, nullptr, 0, 1, warp, lane,
+                                    koff, voff, qv, m, l, acc);
 
   if (lane == 0) {
     sm_m[warp] = m;
@@ -234,61 +203,70 @@ decode_attn_kernel(const T* __restrict__ q, const C* __restrict__ cache,
   }
 #pragma unroll
   for (int e = 0; e < EPL; ++e)
-    out[(size_t)b * f + h * D + lane * EPL + e] =
-        from_f32<T>(l_all > 0.f ? o[e] / l_all : 0.f);
-}
-
-template <typename T, typename C, int EPL>
-void launch_attn(const void* q, const void* cache, const void* scales,
-                 const void* tail, const int* pos, const int* pad, void* out,
-                 int B, int S, int H, int H_kv, float scale,
-                 cudaStream_t st) {
-  decode_attn_kernel<T, C, EPL><<<dim3(H, B), kWarps * 32, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const C*>(cache),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const T*>(tail), pos, pad, static_cast<T*>(out), S, H,
-      H_kv, scale);
+    if (lane * EPL + e < D)
+      out[(size_t)b * f + h * D + lane * EPL + e] =
+          from_f32<T>(l_all > 0.f ? o[e] / l_all : 0.f);
 }
 
 template <typename T, typename C>
 cudaError_t launch(const void* q, const void* kv_new, void* cache,
-                   void* scales, void* tail, const void* pos_v,
-                   const void* pad_v, void* out, int B, int S, int H,
-                   int H_kv, int D, float scale, void* stream) {
+                   void* scales, void* tail, const void* pos, const void* pad,
+                   void* out, int B, int S, int H, int H_kv, int D,
+                   float scale, void* stream) {
+  if (B < 1 || H_kv < 1 || H % H_kv != 0 ||
+      (std::is_same<C, int8_t>::value && S % kTail != 0))
+    return cudaErrorInvalidValue;
+  const dim3 grid(H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* pos = static_cast<const int*>(pos_v);
-  const int* pad = static_cast<const int*>(pad_v);
-  if (D % 32 != 0 || D > 128 || H % H_kv != 0) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<C, int8_t>::value) {
-    insert_flush_int8_kernel<T><<<B, 256, 0, st>>>(
-        static_cast<const T*>(kv_new), static_cast<T*>(tail),
-        static_cast<int8_t*>(cache), static_cast<__nv_bfloat16*>(scales),
-        pos, S, H_kv * D);
-  } else {
-    insert_kernel<T, C><<<B, 256, 0, st>>>(static_cast<const T*>(kv_new),
-                                           static_cast<C*>(cache), pos, S,
-                                           2 * H_kv * D);
+#define DECODE_ATTN(DD)                                                      \
+  if (D == DD) {                                                             \
+    decode_attn_kernel<T, C, DD><<<grid, kWarps * 32, 0, st>>>(              \
+        static_cast<const T*>(q), static_cast<const T*>(kv_new),             \
+        static_cast<C*>(cache), static_cast<__nv_bfloat16*>(scales),         \
+        static_cast<T*>(tail), static_cast<const int*>(pos),                 \
+        static_cast<const int*>(pad), static_cast<T*>(out), S, H, H_kv,      \
+        scale);                                                              \
+    return cudaGetLastError();                                               \
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  switch (D / 32) {
-    case 1: launch_attn<T, C, 1>(q, cache, scales, tail, pos, pad, out, B, S,
-                                 H, H_kv, scale, st); break;
-    case 2: launch_attn<T, C, 2>(q, cache, scales, tail, pos, pad, out, B, S,
-                                 H, H_kv, scale, st); break;
-    case 3: launch_attn<T, C, 3>(q, cache, scales, tail, pos, pad, out, B, S,
-                                 H, H_kv, scale, st); break;
-    default: launch_attn<T, C, 4>(q, cache, scales, tail, pos, pad, out, B,
-                                  S, H, H_kv, scale, st); break;
-  }
-  return cudaGetLastError();
+  DECODE_ATTN(64)
+  DECODE_ATTN(100)
+  DECODE_ATTN(128)
+#undef DECODE_ATTN
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// One C entry point per (compute dtype, cache dtype). Pointers: q, kv_new,
-// cache, scales (int8 only, else null), tail (int8 only, else null), pos,
-// prefix_pad (may be null), out.
+// bf16 q, int8 cache: the tensor-core kernel. Pointers: q [B, F], kv_new
+// [B, 2 F_kv], cache int8 [B, S, 2 F_kv], scales bf16 [B, S, 2], tail bf16
+// [B, 32, 2 F_kv], pos [B] int32, prefix_pad [B] int32 (may be null), out
+// [B, F]; nq query heads a block and nsplit blocks a cluster from
+// ops/attention.py (chunk_geometry with int8=True). Returns
+// cudaErrorInvalidValue for what the kernel does not take.
+extern "C" cudaError_t decode_attention_bf16_int8(
+    const void* q, const void* kv_new, void* cache, void* scales, void* tail,
+    const void* pos, const void* pad, void* out, int B, int S, int H,
+    int H_kv, int D, int nq, int nsplit, float scale, void* stream) {
+  attn_mma::MmaArgs a = {};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kv_new = static_cast<const __nv_bfloat16*>(kv_new);
+  a.cache = cache;
+  a.scales = static_cast<__nv_bfloat16*>(scales);
+  a.tail = static_cast<__nv_bfloat16*>(tail);
+  a.pos = static_cast<const int*>(pos);
+  a.pad = static_cast<const int*>(pad);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.C = 1;
+  a.S = S;
+  a.H = H;
+  a.H_kv = H_kv;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  return attn_mma::launch_any<true>(a, B, D, nq, nsplit, stream);
+}
+
+// The CUDA-core entries, one per (compute dtype, cache dtype). Pointers: q,
+// kv_new, cache, scales (int8 only, else null), tail (int8 only, else
+// null), pos, prefix_pad (may be null), out.
 #define DECODE_ATTENTION_ENTRY(NAME, T, C)                                    \
   extern "C" cudaError_t NAME(const void* q, const void* kv_new, void* cache, \
                               void* scales, void* tail, const void* pos,      \
@@ -299,9 +277,7 @@ cudaError_t launch(const void* q, const void* kv_new, void* cache,
                         H, H_kv, D, scale, stream);                           \
   }
 
-DECODE_ATTENTION_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 DECODE_ATTENTION_ENTRY(decode_attention_bf16_f32, __nv_bfloat16, float)
-DECODE_ATTENTION_ENTRY(decode_attention_bf16_int8, __nv_bfloat16, int8_t)
 DECODE_ATTENTION_ENTRY(decode_attention_f32_f32, float, float)
 DECODE_ATTENTION_ENTRY(decode_attention_f32_bf16, float, __nv_bfloat16)
 DECODE_ATTENTION_ENTRY(decode_attention_f32_int8, float, int8_t)

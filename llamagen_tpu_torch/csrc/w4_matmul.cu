@@ -54,9 +54,13 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "kernel_util.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace kutil;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -69,13 +73,6 @@ constexpr int kMaxPass = kBatchGroups * kMaxNT * 8;  // 96 batch rows
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSmem = 232448;       // 227 KB, the H100's per-block limit
 
-// bf16 elements per staged x row: 4 * words must be 32 mod 128 bytes, so the
-// 8-byte B-fragment loads of a half-warp (4 rows x 4 lanes) hit 32 banks.
-__host__ __device__ inline int x_stride(int kb) {
-  const int w = kb / 2;
-  return 2 * (w + ((8 - w) & 31));
-}
-
 // Shared memory of one block: packed rows, scales, x (two halves), and the
 // slots that receive the cluster's f32 partials of the columns this block
 // sums (bc * 16 float4 units over the ranks, + kMaxCluster for rounding).
@@ -87,34 +84,6 @@ __host__ __device__ inline int smem_bytes(int kb, int bc, int ngb,
          (bc * (kCols / 4) + kMaxCluster) * 16;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
-                                         uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
 // Two nibbles (bits 0-3 and 16-19 of q) -> bf16x2 levels in [-8, 7]:
 // 0x4300 | (u ^ 8) is the bf16 128 + level + 8; subtract 136 exactly.
 __device__ __forceinline__ uint32_t levels(uint32_t q) {
@@ -124,32 +93,6 @@ __device__ __forceinline__ uint32_t levels(uint32_t q) {
       : "=r"(d)
       : "r"(m), "r"(0x3F803F80u), "r"(0xC308C308u));
   return d;
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 v) {
-  return __bfloat16_as_ushort(v);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  uint2 u;
-  u.x = bf16_bits(v.x) | (static_cast<uint32_t>(bf16_bits(v.y)) << 16);
-  u.y = bf16_bits(v.z) | (static_cast<uint32_t>(bf16_bits(v.w)) << 16);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // Stage x[b0 + r, h * K2 + k0 + j] as bf16 at xs[(h * bc + r) * xs_stride
@@ -173,7 +116,7 @@ __device__ void stage_x(const T* __restrict__ x, __nv_bfloat16* xs, int b0,
     if (vec) {  // K2 % 8 == 0: whole 8-element chunks, 16-byte aligned
       const bool live = r < rows && ch * 8 < kbe;
       if constexpr (sizeof(T) == 2) {
-        cp_async16(dst + ch * 8, live ? src + ch * 8 : x, live ? 16 : 0);
+        cp_async<16>(dst + ch * 8, live ? src + ch * 8 : x, live ? 16 : 0);
       } else {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
         if (live) {
@@ -237,7 +180,7 @@ w4_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ blocks,
         blocks + (live ? (static_cast<size_t>(blk) * K2 + k0 + r) * BN + c0 +
                              ch * 16
                        : size_t{0});
-    cp_async16(ws + r * kWRow + ch * 16, src, live ? 16 : 0);
+    cp_async<16>(ws + r * kWRow + ch * 16, src, live ? 16 : 0);
   }
   if (kGrouped) {
     const int g0 = k0 / seg, half = R / 2;
@@ -249,10 +192,10 @@ w4_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ blocks,
           scales + (live ? (static_cast<size_t>(blk) * R + h * half + g0 +
                             j) * BN + c0 + ch * 4
                          : size_t{0});
-      cp_async16(ss + (h * ngb + j) * kCols + ch * 4, src, live ? 16 : 0);
+      cp_async<16>(ss + (h * ngb + j) * kCols + ch * 4, src, live ? 16 : 0);
     }
   } else if (threadIdx.x < kCols / 4) {
-    cp_async16(ss + threadIdx.x * 4, scales + col0 + threadIdx.x * 4, 16);
+    cp_async<16>(ss + threadIdx.x * 4, scales + col0 + threadIdx.x * 4, 16);
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;

@@ -1,10 +1,13 @@
 """Single-token decode attention with an in-place KV cache.
 
 PyTorch counterpart of `llamagen_tpu/ops/attention.py::decode_attention`.
-`decode_attention` launches the hand-written CUDA kernel
-`csrc/decode_attention.cu` on CUDA tensors and computes
-`decode_attention_ref`, the plain version with the same signature, on CPU
-tensors.
+`decode_attention` launches a hand-written CUDA kernel on CUDA tensors, one
+launch per call (bf16 q with a bf16 cache: the tensor-core kernel of
+`csrc/chunk_attention.cu` at one query; bf16 q with an int8 cache: the
+tensor-core kernel of `csrc/decode_attention.cu`; the f32 and mixed
+entries: its CUDA-core kernel), and computes `decode_attention_ref`, the
+plain version with the same signature, on CPU tensors. head_dim 64, 100
+or 128 on the card.
 
 Cache layout (as in JAX, `gpt.py:103-112`): one `[B, S, 2 * F_kv]` buffer
 per layer, k in lanes `[0, F_kv)` and v in `[F_kv, 2 * F_kv)`,
@@ -30,6 +33,7 @@ import torch
 from llamagen_tpu_torch.ops import _build
 
 TAIL = 32  # exact int8 tail rows (JAX RECENT_INT8, attention.py:48)
+HEAD_DIMS = (64, 100, 128)  # the zoo's head_dims: what the kernels take
 
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32",
                 torch.int8: "int8"}
@@ -180,9 +184,9 @@ def decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     tail:       int8 caches: [B, 32, 2 * F_kv] exact rows [bnd, pos] in q's
                 dtype, in place (the new row lands at pos % 32)
 
-    On CUDA tensors this launches `csrc/decode_attention.cu` (counted in
-    `decode_attention.launches`, one per call); on CPU tensors it runs
-    `decode_attention_ref`.
+    On CUDA tensors this makes one kernel launch (counted in
+    `decode_attention.launches`) and raises on what the kernels do not
+    take; on CPU tensors it runs `decode_attention_ref`.
     """
     b, f, d, f_kv, s_len = _check(q, kv_new, kv_cache, pos, n_head,
                                   kv_scale, tail)
@@ -193,8 +197,8 @@ def decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
             or kv_cache.dtype not in _DTYPE_NAMES:
         raise TypeError(f"unsupported dtypes q {q.dtype}, "
                         f"cache {kv_cache.dtype}")
-    if d % 32 or d > 128:
-        raise ValueError(f"head_dim {d} must be a multiple of 32, <= 128")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} must be one of {HEAD_DIMS}")
     quantized = kv_cache.dtype == torch.int8
     in_place = [kv_cache] + ([kv_scale, tail] if quantized else [])
     if not all(t.is_cuda and t.device == q.device and t.is_contiguous()
@@ -207,17 +211,37 @@ def decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     pad_t = None if prefix_pad is None else batch_positions(prefix_pad, b,
                                                             dev)
     out = torch.empty_like(q)
+    h_kv = f_kv // d
     name = f"decode_attention_{_DTYPE_NAMES[q.dtype]}_" \
            f"{_DTYPE_NAMES[kv_cache.dtype]}"
-    fn = _build.c_function(name, 8, 5, 1)
+    pad_p = None if pad_t is None else pad_t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(fn(
-        q.data_ptr(), kv_new.data_ptr(), kv_cache.data_ptr(),
-        kv_scale.data_ptr() if quantized else None,
-        tail.data_ptr() if quantized else None,
-        pos_t.data_ptr(), None if pad_t is None else pad_t.data_ptr(),
-        out.data_ptr(), b, s_len, f // d, f_kv // d, d, d ** -0.5,
-        stream), name)
+    if q.dtype == torch.bfloat16 and kv_cache.dtype != torch.float32:
+        # the tensor-core kernel (csrc/attention_mma.cuh); a lazy import:
+        # chunk_attention imports this module
+        from llamagen_tpu_torch.ops.chunk_attention import launch_geometry
+        geo = launch_geometry(b, n_head, h_kv, s_len, d, dev.index or 0,
+                              quantized)
+        if quantized:
+            fn = _build.c_function(name, 8, 7, 1)
+            err = fn(q.data_ptr(), kv_new.data_ptr(), kv_cache.data_ptr(),
+                     kv_scale.data_ptr(), tail.data_ptr(), pos_t.data_ptr(),
+                     pad_p, out.data_ptr(), b, s_len, n_head, h_kv, d,
+                     geo.nq, geo.nsplit, d ** -0.5, stream)
+        else:  # K5's entry at one query a row: the same semantics
+            name = "chunk_attention_bf16_bf16"
+            fn = _build.c_function(name, 6, 8, 1)
+            err = fn(q.data_ptr(), kv_new.data_ptr(), kv_cache.data_ptr(),
+                     pos_t.data_ptr(), pad_p, out.data_ptr(), b, 1, s_len,
+                     n_head, h_kv, d, geo.nq, geo.nsplit, d ** -0.5, stream)
+    else:
+        fn = _build.c_function(name, 8, 5, 1)
+        err = fn(q.data_ptr(), kv_new.data_ptr(), kv_cache.data_ptr(),
+                 kv_scale.data_ptr() if quantized else None,
+                 tail.data_ptr() if quantized else None, pos_t.data_ptr(),
+                 pad_p, out.data_ptr(), b, s_len, n_head, h_kv, d,
+                 d ** -0.5, stream)
+    _build.check(err, name)
     decode_attention.launches += 1
     return out
 

@@ -33,10 +33,10 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 import torch
 
 from llamagen_tpu_torch.ops import _build
-from llamagen_tpu_torch.ops.attention import batch_positions
+from llamagen_tpu_torch.ops.attention import HEAD_DIMS, batch_positions
 
 MAX_CHUNK = 8  # query rows the kernel takes (the JAX kernel's CP tile)
-# csrc/chunk_attention.cu's bf16 kernel (chunk_mma_kernel)
+# csrc/attention_mma.cuh's tensor-core kernel (attn_mma_kernel)
 _WARPS, _TILE, _STAGES = 4, 64, 3  # warps, rows a tile, ring stages
 _MAX_SPLIT = 8                     # blocks per cluster (kMaxSplit)
 _MAX_SMEM = 232448                 # 227 KB (kMaxSmem)
@@ -109,34 +109,52 @@ def chunk_decode_attention_ref(q: torch.Tensor, kv_new: torch.Tensor,
 
 
 class ChunkGeometry(NamedTuple):
-    """Launch geometry of the bf16 kernel: `nq` query heads of one kv head
-    a block, `nsplit` blocks a cluster splitting the rows, `smem` bytes of
-    shared memory a block."""
+    """Launch geometry of the tensor-core kernel: `nq` query heads of one
+    kv head a block, `nsplit` blocks a cluster splitting the rows, `smem`
+    bytes of shared memory a block."""
     nq: int
     nsplit: int
     smem: int
 
 
-def _smem_bytes(d: int, nq: int) -> int:
-    """The kernel's mma_smem_bytes: the k/v ring, or the states of the
-    warps and of the block."""
-    return max(2 * _STAGES * _TILE * d * 2,
-               (_WARPS + 1) * nq * 8 * (d + 2) * 4)
+def padded_dim(d: int) -> int:
+    """head_dim rounded up to the kernel's k16 steps (100 -> 112)."""
+    return -(-d // 16) * 16
+
+
+def _smem_bytes(d: int, nq: int, int8: bool = False) -> int:
+    """The kernel's mma_smem_bytes: the k/v ring of bf16 rows (head_dim 64
+    and 128: head_dim lanes; 100: 120 lanes), or with an int8 cache one
+    bf16 tile and the int8 ring (4 stages, 3 at head_dim 100) with a scale
+    word a row; or the states of the warps and of the block over the
+    padded head_dim."""
+    ring_row = d if d % 64 == 0 else padded_dim(d) + 8
+    if int8:
+        stages = 4 if d % 64 == 0 else 3
+        ring = 2 * _TILE * ring_row * 2 \
+            + stages * _TILE * (2 * padded_dim(d) + 4)
+    else:
+        ring = 2 * _STAGES * _TILE * ring_row * 2
+    return max(ring, (_WARPS + 1) * nq * 8 * (padded_dim(d) + 2) * 4)
 
 
 def chunk_geometry(b: int, n_head: int, h_kv: int, s_len: int, d: int,
-                   sms: int) -> ChunkGeometry:
-    """The bf16 kernel's launch geometry, a pure function of the shapes and
-    the card's SM count: as many query heads a block as share a kv head
-    (at most 4, and nq * head_dim <= 256 to bound registers), then the
-    fewest splits (at most 8, each over >= 128 cache rows) that give every
-    SM a block. Each split more costs a merge: on the H100 at GPT-L (256
+                   sms: int, int8: bool = False) -> ChunkGeometry:
+    """The tensor-core kernel's launch geometry (K5's bf16 entry, K1's bf16
+    and int8 entries), a pure function of the shapes and the card's SM
+    count: as many query heads a block as share a kv head (at most 4, and
+    nq * padded head_dim <= 256 to bound registers), then the fewest
+    splits (at most 8, each over >= 128 cache rows) that give every SM a
+    block. Each split more costs a merge: on the H100 at GPT-L (256
     blocks) one split ran fastest (`PERF.md`)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
     rep = n_head // h_kv
-    nq = next(n for n in (4, 2, 1) if rep % n == 0 and n * d <= 256)
+    nq = next(n for n in (4, 2, 1)
+              if rep % n == 0 and n * padded_dim(d) <= 256)
     blocks = b * (n_head // nq)
     nsplit = max(1, min(_MAX_SPLIT, -(-sms // blocks), -(-s_len // 128)))
-    return ChunkGeometry(nq, nsplit, _smem_bytes(d, nq))
+    return ChunkGeometry(nq, nsplit, _smem_bytes(d, nq, int8))
 
 
 def chunk_split_rows(pos: int, pad: int, c: int, s_len: int,
@@ -152,10 +170,11 @@ def chunk_split_rows(pos: int, pad: int, c: int, s_len: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_geometry(b: int, n_head: int, h_kv: int, s_len: int, d: int,
-                     index: int) -> ChunkGeometry:
+def launch_geometry(b: int, n_head: int, h_kv: int, s_len: int, d: int,
+                    index: int, int8: bool = False) -> ChunkGeometry:
     """The geometry per call shape and device, computed once."""
-    return chunk_geometry(b, n_head, h_kv, s_len, d, _build.sm_count(index))
+    return chunk_geometry(b, n_head, h_kv, s_len, d, _build.sm_count(index),
+                          int8)
 
 
 def chunk_decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
@@ -187,9 +206,9 @@ def chunk_decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     if q.dtype not in _DTYPE_NAMES or kv_cache.dtype not in _DTYPE_NAMES:
         raise TypeError(f"unsupported dtypes q {q.dtype}, "
                         f"cache {kv_cache.dtype}")
-    if d not in (64, 128) or not 1 <= c <= MAX_CHUNK:
-        raise ValueError(f"head_dim {d} must be 64 or 128 and the chunk "
-                         f"{c} in [1, {MAX_CHUNK}]")
+    if d not in HEAD_DIMS or not 1 <= c <= MAX_CHUNK:
+        raise ValueError(f"head_dim {d} must be one of {HEAD_DIMS} and the "
+                         f"chunk {c} in [1, {MAX_CHUNK}]")
     if not (kv_cache.is_cuda and kv_cache.device == q.device
             and kv_cache.is_contiguous()):
         raise ValueError("the cache must be contiguous, on q's device")
@@ -207,8 +226,8 @@ def chunk_decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     name = f"chunk_attention_{_DTYPE_NAMES[q.dtype]}_" \
            f"{_DTYPE_NAMES[kv_cache.dtype]}"
     if name == "chunk_attention_bf16_bf16":
-        geo = _launch_geometry(b, n_head, f_kv // d, s_len, d,
-                               dev.index or 0)
+        geo = launch_geometry(b, n_head, f_kv // d, s_len, d,
+                              dev.index or 0)
         fn = _build.c_function(name, 6, 8, 1)
         err = fn(*ptrs, b, c, s_len, n_head, f_kv // d, d, geo.nq,
                  geo.nsplit, d ** -0.5, stream)

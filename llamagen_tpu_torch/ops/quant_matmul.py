@@ -17,15 +17,20 @@ keys of the JAX parameter tree.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from llamagen_tpu_torch.ops import _build
-from llamagen_tpu_torch.ops.w4_matmul import w4_dequant, w4_matmul
+from llamagen_tpu_torch.ops.w4_matmul import _x_stride, w4_dequant, w4_matmul
 
-_CHUNK = 128  # K rows per round of csrc/int8_matmul.cu (kChunk)
+# csrc/int8_matmul.cu's constants
+_MAX_CLUSTER = 8      # blocks per cluster (kMaxCluster)
+_ROWS = 128           # K rows a block takes where the cluster allows
+_MAX_PASS = 96        # batch rows per pass (kMaxPass)
+_MAX_SMEM = 232448    # shared memory per block, 227 KB (kMaxSmem)
 
 
 def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
@@ -35,14 +40,67 @@ def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     return ((x.float() @ w_q.float()) * w_scale.float()).to(x.dtype)
 
 
-def _k_per_split(b: int, k: int, n: int, device: torch.device) -> int:
-    """K rows per block (a multiple of the kernel's 128-row chunk): split K
-    across blocks until the grid has about two blocks per SM."""
-    chunks = -(-k // _CHUNK)
-    tiles = -(-n // 64) * -(-b // 16)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(chunks, -(-2 * sms // tiles)))
-    return -(-chunks // splits) * _CHUNK
+class Int8Geometry(NamedTuple):
+    """Launch geometry of `csrc/int8_matmul.cu`: `cols` (64 or 128) output
+    columns a block; a cluster of `ks` blocks splits the K rows of each
+    column tile, `kb` rows a block (a multiple of 16); batch rows go in
+    passes of `bc` (a multiple of 8, <= 96); `smem` bytes of shared memory
+    a block."""
+    cols: int
+    ks: int
+    kb: int
+    bc: int
+    smem: int
+
+
+def _smem_bytes(kb: int, bc: int, planes: int, cols: int) -> int:
+    """Shared memory of one block (the kernel's smem_bytes): weight rows,
+    scales, x in `planes` bf16 planes (3 for f32 x), the slots of the f32
+    partials the block sums."""
+    return kb * (cols + 16) + cols * 4 + planes * bc * _x_stride(kb) * 2 \
+        + (bc * cols // 4 + _MAX_CLUSTER) * 16
+
+
+def int8_geometry(b: int, k: int, n: int, sms: int, f32: bool = False,
+                  cols: Optional[int] = None) -> Int8Geometry:
+    """The kernel's launch geometry, a pure function of the shapes, x's
+    dtype and the card's SM count: 128-column tiles where a cluster of 8
+    over them still gives every SM a block (whole 128-byte lines, every
+    warp busy at 16 batch rows), else 64 (`cols` forces one); then
+    `w4_geometry`'s rule: the smallest cluster (at most 8 blocks) that
+    gives the grid at least one block per SM and each block at most 128
+    K rows, else 8; the batch in as few passes of equal size as 96 rows a
+    pass allow, shrunk while a block's shared memory passes 227 KB (f32 x
+    stages three bf16 planes)."""
+    if b < 1 or k < 1 or n < 2 or n % 2:
+        raise ValueError(f"no int8 geometry for B={b}, K={k}, N={n}")
+    units = -(-k // 16)
+    if cols is None:
+        cols = 128 if -(-n // 128) * min(_MAX_CLUSTER, units) >= sms else 64
+    tiles = -(-n // cols)
+    per = units
+    for want in range(1, min(_MAX_CLUSTER, units) + 1):
+        per = -(-units // want)
+        if -(-units // per) * tiles >= sms and per * 16 <= _ROWS:
+            break
+    kb = per * 16
+    ks = -(-k // kb)
+    planes = 3 if f32 else 1
+    passes = -(-b // _MAX_PASS)
+    bc = -(-(-(-b // passes)) // 8) * 8
+    while _smem_bytes(kb, bc, planes, cols) > _MAX_SMEM and bc > 8:
+        bc -= 8
+    if _smem_bytes(kb, bc, planes, cols) > _MAX_SMEM:
+        raise ValueError(f"K={k} needs {kb} rows a block: more shared "
+                         f"memory than a block has")
+    return Int8Geometry(cols, ks, kb, bc, _smem_bytes(kb, bc, planes, cols))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_geometry(b: int, k: int, n: int, f32: bool,
+                     index: int) -> Int8Geometry:
+    """The geometry per call shape and device, computed once."""
+    return int8_geometry(b, k, n, _build.sm_count(index), f32)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -50,9 +108,9 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     """x [B, K] (bf16/f32) @ dequant(w_q [K, N] int8, w_scale [N] f32)
     -> [B, N] in x's dtype.
 
-    On a CUDA tensor this launches `csrc/int8_matmul.cu` (and counts the
-    launch in `int8_matmul.launches`); on a CPU tensor it computes
-    `int8_matmul_ref`.
+    On a CUDA tensor this launches `csrc/int8_matmul.cu` once (counted in
+    `int8_matmul.launches`) and raises on what the kernel does not take; on
+    a CPU tensor it computes `int8_matmul_ref`.
     """
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
@@ -72,20 +130,17 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     if not (w_q.is_cuda and w_scale.is_cuda
             and x.device == w_q.device == w_scale.device):
         raise ValueError("x, w_q and w_scale must be on one CUDA device")
+    geo = _launch_geometry(b, k, n, x.dtype == torch.float32,
+                           x.device.index or 0)
     x = x.contiguous()
     w_q = w_q.contiguous()
     w_scale = w_scale.float().contiguous()
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
-    k_per_split = _k_per_split(b, k, n, x.device)
-    splits = -(-k // k_per_split)
-    partial = (torch.empty((splits, b, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    fn = _build.c_function(name, 5, 4)
+    fn = _build.c_function(name, 4, 7)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                    out.data_ptr(),
-                    None if partial is None else partial.data_ptr(),
-                    b, k, n, k_per_split, stream), name)
+                    out.data_ptr(), b, k, n, geo.cols, geo.ks, geo.kb,
+                    geo.bc, stream), name)
     int8_matmul.launches += 1
     return out
 

@@ -1,26 +1,31 @@
-"""Times of the W4 matmul (K3) and chunk attention (K5) kernels of one tree
-of the PyTorch port, for A/B comparisons of kernel designs on one GPU.
+"""Times of the decode attention (K1), W8A16 matmul (K2), W4 matmul (K3)
+and chunk attention (K5) kernels of one tree of the PyTorch port, for A/B
+comparisons of kernel designs on one GPU.
 
 Not a pytest file:
 
-    python tests/bench_torch_k3k5.py [--root DIR] [--label NAME] [out.json]
-    python tests/bench_torch_k3k5.py --sweep [out.json]
+    python tests/bench_torch_kernels.py [--root DIR] [--label NAME] [out.json]
+    python tests/bench_torch_kernels.py --sweep [out.json]
 
 `--root` is the root of a checkout whose `llamagen_tpu_torch` is timed
 (default: this one), for instance an unpacked `git archive` of an earlier
 commit; its kernels build into its own `.build/`. The timing code is this
-tree's `chip_smoke.py` (`time_w4_matmul`, `time_chunk_attention` without
-the plain versions and library calls): K3 per call at the five GPT-L
-layer shapes, B 16 and 80, grouped g128; K5 per call at pos 288, B 16,
-16 heads x 64, bf16, C 5, 1 and 8. Each is a CUDA graph of one call per
-buffer set. Run trees in turns in one call (A, B, B, A): numbers from
-different cards or calls are not comparable.
+tree's `chip_smoke.py` (`time_decode_attention`, `time_int8_matmul`,
+`time_w4_matmul`, `time_chunk_attention` without the plain versions and
+library calls): K1 per call at pos 288, B 16, S 640, int8 and bf16 caches,
+16 heads x 64 (and int8 at 32 heads x 100 where the tree takes it); K2
+per call at B 16 on the five GPT-L and four GPT-3B layer shapes; K3 per
+call at the five GPT-L layer shapes, B 16 and 80, grouped g128; K5 per
+call at pos 288, B 16, 16 heads x 64, bf16, C 5, 1 and 8. Each is a CUDA
+graph of one call per buffer set. Run trees in turns in one call (A, B,
+B, A): numbers from different cards or calls are not comparable.
 
 `--sweep` times this tree's kernels at launch geometries other than the
-ones `w4_geometry` and `chunk_geometry` pick, by calling the C entry
-points directly: K3 at every cluster size its group size allows (grouped
-g128 and per channel, B 16 and 80), K5 at 1, 2, 4 and 8 splits (C 5 and
-1 at pos 288; C 5 at pos 32 and 560).
+ones `w4_geometry`, `int8_geometry` and `chunk_geometry` pick, by calling
+the C entry points directly: K3 at every cluster size its group size
+allows (grouped g128 and per channel, B 16 and 80), K2 at 64- and
+128-column tiles (B 16, the GPT-L and GPT-3B shapes), K5 at 1, 2, 4 and
+8 splits (C 5 and 1 at pos 288; C 5 at pos 32 and 560).
 
 Prints a JSON object as its last line (and writes it to `out.json` when
 given). Needs a CUDA device.
@@ -82,6 +87,28 @@ def sweep(smoke, dev):
                                 stream()), "w4_matmul_bf16")
                             for w in layers])
             del layers
+    from llamagen_tpu_torch.ops import quant_matmul as qm
+    k2 = _build.c_function("int8_matmul_bf16", 4, 7)
+    sms = _build.sm_count(dev.index or 0)
+    for name, (k, n) in dict(smoke.GPT_L_MATMULS,
+                             **smoke.GPT_3B_MATMULS).items():
+        if name == "w3":  # w1's shape
+            continue
+        layers = [qm.quantize_weight(torch.randn(k, n, generator=g,
+                                                 device=dev) * 0.02)
+                  for _ in range(24)]
+        x = torch.randn(16, k, generator=g, device=dev).to(torch.bfloat16)
+        out = torch.empty(16, n, dtype=torch.bfloat16, device=dev)
+        for cols in (64, 128):
+            geo = qm.int8_geometry(16, k, n, sms, cols=cols)
+            res[f"K2 {name} B 16 cols {cols} cluster {geo.ks}"] = \
+                smoke.graph_ms([
+                    lambda w=w, geo=geo: _build.check(k2(
+                        x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+                        out.data_ptr(), 16, k, n, geo.cols, geo.ks, geo.kb,
+                        geo.bc, stream()), "int8_matmul_bf16")
+                    for w in layers])
+        del layers
     k5 = _build.c_function("chunk_attention_bf16_bf16", 6, 8, 1)
     b, h, s = 16, 16, 640
     for c, pos in ((5, 288), (1, 288), (5, 32), (5, 560)):
@@ -138,9 +165,19 @@ def main(argv):
         res = {"label": args.label, "card": card, "sweep_ms": sweep(smoke,
                                                                     dev)}
     else:
+        shapes = (("bf16", 16, 64), ("int8", 16, 64), ("int8", 32, 100))
+        try:  # a tree before head_dim 100 refuses it on the card
+            k1 = smoke.time_decode_attention(dev, full=False, shapes=shapes)
+        except ValueError as e:
+            print(f"K1 at head_dim 100: {e}", flush=True)
+            k1 = smoke.time_decode_attention(dev, full=False,
+                                             shapes=shapes[:2])
+        k2 = smoke.time_int8_matmul(dev, full=False)
         k3 = smoke.time_w4_matmul(dev, full=False)
         k5 = smoke.time_chunk_attention(dev, full=False)
         res = {"label": args.label, "root": str(root), "card": card,
+               "k1_ms": {key: t["ms"] for key, t in k1.items()},
+               "k2_ms": {key: t["ms"] for key, t in k2.items()},
                "k3_ms": {f"{name} B {b}": t["ms"]
                          for (name, b), t in k3.items()},
                "k5_ms": {f"C {c}": t["ms"] for c, t in k5.items()}}

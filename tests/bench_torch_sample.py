@@ -1,5 +1,5 @@
-"""Where the time of the W4 and speculative sampling paths goes, for the
-PyTorch port on one GPU.
+"""Where the time of the W8A16, W4 and speculative sampling paths goes, for
+the PyTorch port on one GPU.
 
 Not a pytest file:
 
@@ -7,6 +7,9 @@ Not a pytest file:
 
 GPT-L 384, random seeded weights with a random head, batch 8 + CFG:
 
+- the W8A16 path (the `bench.py` operating point): W8A16 layer weights +
+  int8 KV cache (prefilled, quantised, its tail seeded as `generate`
+  does), the decode loop at positions 289..320;
 - the W4 path: grouped W4 layer weights (`quantize_gpt_params_w4k`
   defaults) + bf16 KV, the decode loop of `ops/generate.py` (decode_step,
   cfg_mix 2.0, sample) at positions 289..320;
@@ -16,11 +19,15 @@ GPT-L 384, random seeded weights with a random head, batch 8 + CFG:
 Each is timed on the host clock (ending in a device sync), then traced with
 `torch.profiler`; reported per decode step or per verify round: wall ms,
 device busy ms (the union of kernel intervals, so overlapping kernels
-count once), the idle share, kernels launched, and device ms by group (K1
-decode attention, K3 W4 matmul, K5 chunk attention, the separate insert and
-split-K launches, cuBLAS, the rest). Then the host cost of one wrapper
-call (`w4_matmul` at wqkv B 16, `chunk_decode_attention` at C 5, pos
-288): host µs per call over 2000 calls enqueued back to back.
+count once), the idle share, kernels launched, and device ms by group
+(the tensor-core attention kernel that K1 and K5 share, K1's CUDA-core
+kernel, K2 W8A16 matmul, K3 W4 matmul, the separate insert and split-K
+launches of earlier designs, cuBLAS, the rest). Then the host cost of one
+wrapper call (`int8_matmul` and `w4_matmul` at wqkv B 16,
+`decode_attention` on the int8 cache at pos 288, `chunk_decode_attention`
+at C 5, pos 288): host µs per call over 2000 calls enqueued back to
+back. Run it in a copy of an earlier tree too (copied into its `tests/`)
+to compare trees, in alternating pairs.
 Prints a JSON object as its last line (and writes it to `out.json` when
 given). Needs a CUDA device.
 """
@@ -41,14 +48,17 @@ from bench_torch_train import _union_us  # noqa: E402
 
 def _group(name: str) -> str:
     low = name.lower()
-    for keys, group in ((("decode_attn",), "K1 decode attention"),
-                        (("w4_mma", "w4_matmul"), "K3 W4 matmul"),
-                        (("chunk_mma", "chunk_attn"), "K5 chunk attention")):
-        if any(k in low for k in keys):
-            return group
     if "insert_kernel" in low or "insert_flush" in low \
             or "finish_kernel" in low:
         return "K1/K2/K5 insert and split-K launches"
+    for keys, group in ((("attn_mma", "chunk_mma"),
+                         "K1/K5 tensor-core attention"),
+                        (("decode_attn",), "K1 decode attention (CUDA cores)"),
+                        (("int8_mma", "int8_matmul"), "K2 W8A16 matmul"),
+                        (("w4_mma", "w4_matmul"), "K3 W4 matmul"),
+                        (("chunk_attn",), "K5 chunk attention (CUDA cores)")):
+        if any(k in low for k in keys):
+            return group
     if "gemm" in low or "cutlass" in low or "xmma" in low \
             or low.startswith("nvjet"):
         return "matmul (cuBLAS)"
@@ -81,19 +91,31 @@ def _profile(fn):
             "device_ms_by_group": groups}
 
 
-def _wrapper_host_us(w4_model, cache, dev, calls=2000):
+def _wrapper_host_us(w4_model, w8_model, cache, cache8, dev, calls=2000):
     """Host µs per wrapper call, enqueued back to back (the device work of
     a call is shorter than its host cost, so the queue never fills)."""
+    from llamagen_tpu_torch.ops.attention import decode_attention
     from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.quant_matmul import int8_matmul
     from llamagen_tpu_torch.ops.w4_matmul import w4_matmul
     lin = w4_model.layers[0].attention.wqkv
+    lin8 = w8_model.layers[0].attention.wqkv
     x = torch.randn(16, lin.weight_w4b.shape[1] * 2, device=dev,
                     dtype=torch.bfloat16)
     q = torch.randn(16, 5, 1024, device=dev, dtype=torch.bfloat16)
     kv_new = torch.randn(16, 5, 2048, device=dev, dtype=torch.bfloat16)
     kv = cache.kv[0]
+    # decode_attention at pos 288 (pos % 32 = 0: no flush) on a copy of
+    # layer 0's int8 state, so the timed path's cache stays as it was
+    kv8, sc8, tail8 = (t[0].clone() for t in (cache8.kv, cache8.kv_scale,
+                                               cache8.tail))
     out = {}
-    for name, fn in (("w4_matmul", lambda: w4_matmul(x, lin.weight_w4b,
+    for name, fn in (("int8_matmul", lambda: int8_matmul(
+                          x, lin8.weight_q, lin8.weight_scale)),
+                     ("decode_attention", lambda: decode_attention(
+                         q[:, 0], kv_new[:, 0], kv8, 288, 16, kv_scale=sc8,
+                         tail=tail8)),
+                     ("w4_matmul", lambda: w4_matmul(x, lin.weight_w4b,
                                                      lin.weight_w4s)),
                      ("chunk_decode_attention", lambda: chunk_decode_attention(
                          q, kv_new, kv, 288, 16))):
@@ -115,6 +137,8 @@ def main(argv):
     from llamagen_tpu_torch.config import find_multiple, gpt_config
     from llamagen_tpu_torch.models import gpt
     from llamagen_tpu_torch.ops import sampling
+    from llamagen_tpu_torch.ops.attention import TAIL
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
     from llamagen_tpu_torch.ops.speculative import generate_speculative
     from llamagen_tpu_torch.ops.w4_matmul import quantize_gpt_params_w4k
 
@@ -132,6 +156,7 @@ def main(argv):
             device=dev).manual_seed(1))
     model.eval()
     w4 = quantize_gpt_params_w4k(copy.deepcopy(model))
+    w8 = quantize_gpt_params(copy.deepcopy(model))
     labels = torch.arange(8, device=dev) * 100 % 1000
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"card": smi}
@@ -141,6 +166,22 @@ def main(argv):
     cache = gpt.init_cache(cfg, 16, find_multiple(577, 128), torch.bfloat16,
                            dev)
     tok = torch.zeros(8, dtype=torch.long, device=dev)
+
+    # the W8A16 decode loop on an int8 cache, set up as `generate` does
+    stage = gpt.init_cache(cfg, 16, 40, torch.bfloat16, dev)
+    gpt.prefill(w8, torch.cat([labels, torch.full_like(labels, 1000)]),
+                stage)
+    cache8 = gpt.quantize_cache(stage, cfg, find_multiple(577, 128))
+    cache8.tail = [c[:, :TAIL].clone() for c in stage.kv]
+
+    def w8_steps(n=32, pos0=289):
+        nonlocal tok
+        for i in range(n):
+            logits = gpt.decode_step(w8, torch.cat([tok, tok]), pos0 + i,
+                                     cache8)
+            tok = sampling.sample(sampling.cfg_mix(logits, 2.0), gen)
+        torch.cuda.synchronize()
+        return n
 
     def w4_steps(n=32, pos0=289):
         nonlocal tok
@@ -158,12 +199,14 @@ def main(argv):
         torch.cuda.synchronize()
         return rounds
 
-    w4_steps(8)  # warm-up: kernel build, allocator, cuBLAS plans
+    w8_steps(8, 257)  # warm-up: kernel build, allocator, cuBLAS plans
+    res["w8a16_int8kv_step"] = _profile(w8_steps)
+    w4_steps(8)
     res["w4_step"] = _profile(w4_steps)
     spec()
     res["spec_round"] = _profile(spec)
-    res["host_us_per_call"] = _wrapper_host_us(w4, cache, dev)
-    for path in ("w4_step", "spec_round"):
+    res["host_us_per_call"] = _wrapper_host_us(w4, w8, cache, cache8, dev)
+    for path in ("w8a16_int8kv_step", "w4_step", "spec_round"):
         r = res[path]
         print(f"{path} (x{r['units']}): wall {r['wall_ms']:.2f} ms, device "
               f"busy {r['device_busy_ms']:.2f} ms (idle "

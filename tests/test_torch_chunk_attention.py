@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from llamagen_tpu_torch.ops.chunk_attention import (
-    chunk_decode_attention, chunk_decode_attention_ref, chunk_geometry,
-    chunk_split_rows)
+    _smem_bytes, chunk_decode_attention, chunk_decode_attention_ref,
+    chunk_geometry, chunk_split_rows)
 
 try:
     import jax.numpy as jnp
@@ -104,6 +104,16 @@ def test_early_positions():
     pos = np.asarray([0, 5], np.int32)
     q, kv_new, cache = _inputs(rng, 2, 3, 32, 4, 32, 4)
     _compare(*_both(q, kv_new, cache, pos, 4), pos, 3)
+
+
+@pytest.mark.parametrize("c,pos_list", [(5, [37, 12]), (1, [63, 0])])
+def test_head_dim_100_matches_jax(c, pos_list):
+    """GPT-3B's head_dim (100) at its head count (F 3200, the JAX kernel's
+    128-lane rule): the plain version against the JAX kernel."""
+    rng = np.random.RandomState(6)
+    pos = np.asarray(pos_list, np.int32)
+    q, kv_new, cache = _inputs(rng, 2, c, 64, 32, 100, 32)
+    _compare(*_both(q, kv_new, cache, pos, 32), pos, c)
 
 
 def test_refuses_int8_caches_and_overflow():
@@ -204,8 +214,12 @@ def _jax_bf16(q, kv_new, cache, pos, pad, n_head):
     (8, [16, 23], [0, 5], 2, (4, 4, 32)),   # a full 8-row chunk
     (5, [37, 14], [0, 0], 3, (8, 4, 64)),   # GQA rep 2
     (5, [37, 14], [0, 0], 2, (8, 2, 64)),   # GQA rep 4
+    (5, [37, 14], [0, 3], 1, (32, 32, 100)),  # GPT-3B heads (F 3200)
+    (1, [45, 3], [0, 0], 2, (32, 32, 100)),   # its draft step
+    (8, [16, 50], [0, 0], 1, (32, 32, 100)),  # head_dim 100, a full chunk
 ], ids=["one-split", "empty-splits", "pos+C-on-edge", "pad-past-split",
-        "draft-step", "chunk-8", "gqa-rep2", "gqa-rep4"])
+        "draft-step", "chunk-8", "gqa-rep2", "gqa-rep4", "d100",
+        "d100-draft-step", "d100-chunk-8"])
 def test_bf16_kernel_emulation_matches_jax(c, pos_list, pad_list, nsplit,
                                            heads):
     """The bf16 kernel's split-and-merge order with p rounded to bf16,
@@ -277,6 +291,27 @@ def test_bf16_kernel_geometry(c):
                 assert all(n % 16 == 0 for n in full)
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_kernel_geometry_head_dims(int8):
+    """At head_dim 64, 100 and 128 (GPT-L, GPT-3B, GPT-7B heads; GQA too),
+    bf16 or int8 cache: a block's query heads share a kv head, at most
+    nq * padded head_dim = 256 lanes (100 pads to 112), splits only where
+    B * H / nq blocks leave SMs idle, shared memory <= 227 KB and as the
+    kernel lays it out; any other head_dim raises."""
+    for b, n_head, h_kv, d in [(16, 16, 16, 64), (16, 32, 32, 100),
+                               (16, 32, 16, 100), (2, 32, 32, 100),
+                               (16, 32, 32, 128), (16, 32, 8, 128)]:
+        geo = chunk_geometry(b, n_head, h_kv, 640, d, 132, int8)
+        assert (n_head // h_kv) % geo.nq == 0
+        assert geo.nq * -(-d // 16) * 16 <= 256
+        assert geo.nsplit == 1 or b * n_head // geo.nq < 132
+        assert geo.smem == _smem_bytes(d, geo.nq, int8) <= 232448
+    assert _smem_bytes(100, 2, True) < 232448 // 3  # 3 blocks an SM
+    for d in (32, 80, 96):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            chunk_geometry(16, 16, 16, 640, d, 132, int8)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -304,9 +339,11 @@ def _sms(dev):
 @pytest.mark.parametrize("dtype,h_kv,head_dim", [
     (torch.bfloat16, 16, 64), (torch.float32, 16, 64),
     (torch.bfloat16, 8, 64), (torch.bfloat16, 4, 64),
-    (torch.bfloat16, 16, 128), (torch.bfloat16, 4, 128)],
+    (torch.bfloat16, 16, 128), (torch.bfloat16, 4, 128),
+    (torch.bfloat16, 16, 100), (torch.float32, 16, 100),
+    (torch.bfloat16, 8, 100)],
     ids=["bf16", "f32", "bf16-rep2", "bf16-rep4", "bf16-d128",
-         "bf16-rep4-d128"])
+         "bf16-rep4-d128", "bf16-d100", "f32-d100", "bf16-rep2-d100"])
 def test_cuda_kernel_matches_plain(cuda, c, dtype, h_kv, head_dim):
     """The CUDA kernel against chunk_decode_attention_ref on the card, with
     per-row positions: 0, a split edge and its neighbours, pos + C = S,
@@ -349,8 +386,8 @@ def test_cuda_kernel_matches_plain(cuda, c, dtype, h_kv, head_dim):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [1, 5, 8])
-@pytest.mark.parametrize("h_kv,head_dim", [(16, 64), (4, 128)],
-                         ids=["rep1", "rep4-d128"])
+@pytest.mark.parametrize("h_kv,head_dim", [(16, 64), (4, 128), (16, 100)],
+                         ids=["rep1", "rep4-d128", "rep1-d100"])
 def test_cuda_kernel_split_edges(cuda, c, h_kv, head_dim):
     """Two batch rows, so the bf16 kernel splits the rows over a cluster of
     several blocks: positions at and next to every split edge, pos + C = S,
@@ -394,6 +431,12 @@ def test_cuda_kernel_raises_on_what_it_does_not_take(cuda):
     kv = torch.zeros(1, 2, 2 * 4 * 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 32"):
         chunk_decode_attention(q, kv, cache, 0, 4)
+    for d in (80, 96):  # neither is a zoo head_dim
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            chunk_decode_attention(
+                torch.zeros(1, 2, 4 * d, device=cuda),
+                torch.zeros(1, 2, 8 * d, device=cuda),
+                torch.zeros(1, 16, 8 * d, device=cuda), 0, 4)
     q = torch.zeros(1, 9, 4 * 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="chunk 9"):
         chunk_decode_attention(q, torch.zeros(1, 9, 512, device=cuda),

@@ -15,21 +15,25 @@ import torch
 from scipy import stats
 
 from llamagen_tpu.ops import sampling as jsampling
+from llamagen_tpu.ops.generate import _kernel_supported
 from llamagen_tpu.ops.generate import generate as jgenerate
 from llamagen_tpu.ops.quant_matmul import quantize_gpt_params as jquantize
 from llamagen_tpu_torch.ops import sampling
 from llamagen_tpu_torch.ops.generate import generate
 from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+from llamagen_tpu_torch.config import GPTConfig
 from test_torch_gpt import NANO, jax_config, make_pair
 from test_torch_gpt import one_torch_thread  # noqa: F401  (autouse)
 
 LABELS = np.array([3, 7])
+# GPT-3B's head_dim (100) in a small model
+HD100 = GPTConfig(dim=200, n_layer=2, n_head=2, block_size=64)
 
 
-def _both(params, model, **kw):
-    kw = dict(max_new_tokens=NANO.block_size, sample_logits=False, **kw)
+def _both(params, model, cfg=NANO, use_kernel=True, **kw):
+    kw = dict(max_new_tokens=cfg.block_size, sample_logits=False, **kw)
     jtok = jgenerate(params, jax.random.PRNGKey(0), jnp.asarray(LABELS),
-                     cfg=jax_config(NANO), use_kernel=True, compute_dtype=jnp.float32,
+                     cfg=jax_config(cfg), use_kernel=use_kernel, compute_dtype=jnp.float32,
                      cache_dtype=jnp.int8 if kw.get("int8") else jnp.float32,
                      **{k: v for k, v in kw.items() if k != "int8"})
     tok = generate(model, torch.tensor(LABELS), compute_dtype=torch.float32,
@@ -52,6 +56,19 @@ def test_greedy_tokens_match_jax_w8a16_int8_kv():
     params, model = make_pair(NANO)
     tok, jtok = _both(jquantize(params), quantize_gpt_params(model),
                       cfg_scale=2.0, int8=True)
+    np.testing.assert_array_equal(tok, jtok)
+
+
+def test_greedy_tokens_match_jax_head_dim_100():
+    """head_dim 100 (GPT-3B's) end to end, f32: JAX takes its XLA decode
+    path here (F = 200 is not 128-aligned, `generate._kernel_supported`;
+    its int8 KV cache needs the kernel path), the port its kernels' plain
+    versions; greedy tokens over 64 steps equal."""
+    params, model = make_pair(HD100)
+    assert not _kernel_supported(jax_config(HD100), warn=False)
+    tok, jtok = _both(params, model, cfg=HD100, use_kernel=False,
+                      cfg_scale=2.0)
+    assert tok.shape == (2, 64)
     np.testing.assert_array_equal(tok, jtok)
 
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from llamagen_tpu_torch.ops import quant_matmul as qm
 from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul, int8_matmul_ref,
                                                  matmul_any, quantize_weight)
 
@@ -73,14 +74,153 @@ def test_matmul_any_branches_match_jax():
         np.asarray(jqm.matmul_any(pq, "w", jnp.asarray(x))), atol=1e-5)
 
 
+def emulate_kernel(x, w_q, w_scale, sms=132):
+    """The CUDA kernel's order of work, in f32 torch: x as one bf16 piece
+    (bf16 x) or three (f32 x: x1 = bf16(x), x2 = bf16(x - x1), x3 =
+    bf16(x - x1 - x2)); for each rank of the cluster (`int8_geometry`),
+    its K rows in 16-row steps, each step's products of every piece with
+    the exact levels added to the rank's partial; the partials summed in
+    rank order; the scale; one rounding to x's dtype."""
+    b, k = x.shape
+    n = w_q.shape[1]
+    geo = qm.int8_geometry(b, k, n, sms, x.dtype == torch.float32)
+    xf = x.float()
+    if x.dtype == torch.float32:
+        x1 = xf.to(torch.bfloat16).float()
+        x2 = (xf - x1).to(torch.bfloat16).float()
+        pieces = [x1, x2, (xf - x1 - x2).to(torch.bfloat16).float()]
+    else:
+        pieces = [xf]
+    lv = w_q.float()
+    total = torch.zeros(b, n)
+    for rank in range(geo.ks):
+        k0, k1 = rank * geo.kb, min(k, (rank + 1) * geo.kb)
+        part = torch.zeros(b, n)
+        for s0 in range(k0, k1, 16):
+            rows = slice(s0, min(k1, s0 + 16))
+            for piece in pieces:
+                part = part + piece[:, rows] @ lv[rows]
+        total = total + part
+    return (total * w_scale).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,k,n", [(1, 512, 128), (16, 1000, 384),
+                                   (17, 256, 256), (80, 768, 128)])
+def test_kernel_order_of_work_matches_pallas(b, k, n, dtype):
+    """The kernel's order of work (emulated on the CPU, a cluster of
+    several ranks: few SMs to fill) against the Pallas kernel in interpret
+    mode on the same inputs: bf16 x to one bf16 ulp of the largest output,
+    f32 x (its three bf16 pieces) to 1e-5 of it, the card tolerances."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    rng = np.random.RandomState(b + k)
+    x = torch.tensor(rng.randn(b, k).astype(np.float32)).to(tdt)
+    w_q, w_s = quantize_weight(torch.tensor(
+        (rng.randn(k, n) * 0.02).astype(np.float32)))
+    ref = np.asarray(jqm.int8_matmul(
+        jnp.asarray(x.float().numpy(), jdt), jnp.asarray(w_q.numpy()),
+        jnp.asarray(w_s.numpy()), interpret=True).astype(jnp.float32))
+    out = emulate_kernel(x, w_q, w_s, sms=16)
+    assert out.dtype == tdt
+    rel = 1e-5 if dtype == "f32" else 2 ** -7
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=rel * np.abs(ref).max())
+
+
+GEOMETRY_SHAPES = {"wqkv": (1024, 3072), "wo": (1024, 1024),
+                   "w1": (1024, 2816), "w2": (2816, 1024),
+                   "head": (1024, 16384), "3b-wqkv": (3200, 9600),
+                   "3b-wo": (3200, 3200), "3b-w1": (3200, 8704),
+                   "3b-w2": (8704, 3200), "ragged": (1000, 130)}
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(GEOMETRY_SHAPES))
+def test_kernel_geometry(name, f32):
+    """The launch geometry at B 1..320 for every GPT-L and GPT-3B layer
+    shape, the int8 head and a ragged shape: the cluster's K-row ranges
+    cover K exactly (a multiple of 16 rows a block), 64- or 128-column
+    tiles, at most 8 blocks a
+    cluster, batch passes of a multiple of 8 rows (<= 96) that cover B,
+    shared memory <= 227 KB; at GPT-L every grid gives each of 132 SMs a
+    block unless the cluster is already at its 8 blocks (wo, w2: 16
+    column tiles)."""
+    k, n = GEOMETRY_SHAPES[name]
+    for b in range(1, 321):
+        geo = qm.int8_geometry(b, k, n, 132, f32)
+        assert 1 <= geo.ks <= 8 and geo.kb % 16 == 0
+        assert (geo.ks - 1) * geo.kb < k <= geo.ks * geo.kb
+        assert geo.bc % 8 == 0 and 8 <= geo.bc <= 96
+        assert -(-b // geo.bc) * geo.bc >= b
+        assert geo.smem == qm._smem_bytes(geo.kb, geo.bc, 3 if f32 else 1,
+                                          geo.cols)
+        assert geo.smem <= 232448 and geo.cols in (64, 128)
+        if name in ("wqkv", "wo", "w1", "w2", "head"):
+            assert geo.ks * -(-n // geo.cols) >= 132 or geo.ks == 8
+    with pytest.raises(ValueError):
+        qm.int8_geometry(4, k, 129, 132)
+
+
+SHAPES = {"wqkv": (1024, 3072), "wo": (1024, 1024),
+                   "w1": (1024, 2816), "w2": (2816, 1024),
+                   "head": (1024, 16384), "3b-wqkv": (3200, 9600),
+                   "3b-wo": (3200, 3200), "3b-w1": (3200, 8704),
+                   "3b-w2": (8704, 3200), "ragged": (1000, 130)}
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(GEOMETRY_SHAPES))
+def test_kernel_geometry(name, f32):
+    """The launch geometry at B 1..320 for every GPT-L and GPT-3B layer
+    shape, the int8 head and a ragged shape: the cluster's K-row ranges
+    cover K exactly (a multiple of 16 rows a block), 64- or 128-column
+    tiles, at most 8 blocks a
+    cluster, batch passes of a multiple of 8 rows (<= 96) that cover B,
+    shared memory <= 227 KB; at GPT-L every grid gives each of 132 SMs a
+    block unless the cluster is already at its 8 blocks (wo, w2: 16
+    column tiles)."""
+    k, n = GEOMETRY_SHAPES[name]
+    for b in range(1, 321):
+        geo = qm.int8_geometry(b, k, n, 132, f32)
+        assert 1 <= geo.ks <= 8 and geo.kb % 16 == 0
+        assert (geo.ks - 1) * geo.kb < k <= geo.ks * geo.kb
+        assert geo.bc % 8 == 0 and 8 <= geo.bc <= 96
+        assert -(-b // geo.bc) * geo.bc >= b
+        assert geo.smem == qm._smem_bytes(geo.kb, geo.bc, 3 if f32 else 1,
+                                          geo.cols)
+        assert geo.smem <= 232448 and geo.cols in (64, 128)
+        if name in ("wqkv", "wo", "w1", "w2", "head"):
+            assert geo.ks * -(-n // geo.cols) >= 132 or geo.ks == 8
+    with pytest.raises(ValueError):
+        qm.int8_geometry(4, k, 129, 132)
+
+
+def test_kernel_geometry_is_cached_per_shape():
+    """The wrapper asks the device nothing per call: the geometry comes
+    from a cache keyed by shape, x's dtype and device index."""
+    assert qm._launch_geometry.cache_info is not None
+    assert not hasattr(qm, "_k_per_split")
+
+
+SHAPES = {"wqkv": (1024, 3072), "wo": (1024, 1024), "w1": (1024, 2816),
+          "w2": (2816, 1024), "head": (1024, 16384),
+          "3b-wqkv": (3200, 9600), "3b-wo": (3200, 3200),
+          "3b-w1": (3200, 8704), "3b-w2": (8704, 3200),
+          "ragged": (1000, 130), "ragged-k": (1000, 3072),
+          "ragged-n": (1024, 136)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 16, 40])
-@pytest.mark.parametrize("k,n", [(1024, 3072), (1024, 1024), (2816, 1024),
-                                 (1000, 130)])
-def test_cuda_kernel_matches_plain(cuda, b, k, n):
-    """The CUDA kernel against int8_matmul_ref on the card: bf16 to one
-    output ulp, f32 to 1e-5 relative (the f32 sums run in another order)."""
+@pytest.mark.parametrize("b", [1, 16, 17, 80, 320])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_cuda_kernel_matches_plain(cuda, b, shape):
+    """The CUDA kernel against int8_matmul_ref on the card, at the GPT-L
+    and GPT-3B layer shapes, the int8 head and ragged K and N, B 1..320
+    (8-row tiles, 96-row passes): bf16 to one output ulp, f32 to 1e-5
+    relative (the f32 sums run in another order); one launch a call."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    k, n = SHAPES[shape]
     g = torch.Generator(device=cuda).manual_seed(k + n + b)
     w_q, w_s = quantize_weight(torch.randn(k, n, generator=g, device=cuda)
                                * 0.02)
@@ -93,3 +233,16 @@ def test_cuda_kernel_matches_plain(cuda, b, k, n):
         assert out.dtype == dtype and int8_matmul.launches == before + 1
         tol = rel * ref.float().abs().max().item()
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_raises_on_what_it_does_not_take(cuda):
+    """An odd N and an int8 x raise on the card; nothing falls back."""
+    x = torch.zeros(2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="even"):
+        int8_matmul(x, torch.zeros(64, 33, dtype=torch.int8, device=cuda),
+                    torch.ones(33, device=cuda))
+    with pytest.raises(TypeError):
+        int8_matmul(x.to(torch.int8),
+                    torch.zeros(64, 32, dtype=torch.int8, device=cuda),
+                    torch.ones(32, device=cuda))
