@@ -8,15 +8,18 @@ Phases, each of which raises on a failed check (exit code != 0):
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes: decode attention (K1) with bf16 and int8 caches at
    GPT-L's heads (16 x 64) and GPT-3B's (32 x 100), per-row positions,
-   prefix padding and GQA; the W8A16 matmul (K2) at the GPT-L and GPT-3B
-   layer shapes and the int8 head. Each prints its max error beside its
-   tolerance and its median time beside the plain version's, its bound
+   prefix padding and GQA, and the serving engine's shape (B 128, slot
+   positions 0, 31, 32, 63, 575 and a finished slot at 576, three steps
+   across flushes, each row to a tolerance of its own); the W8A16 matmul
+   (K2) at the GPT-L and GPT-3B layer shapes and the int8 head, B 1, 16,
+   128 and 80. Each prints its max error beside its tolerance and its median time beside the plain version's, its bound
    (bytes over 3.35 TB/s or flops over 989 TFLOP/s, from this run's
    inputs) and a PyTorch library call on the same inputs where one exists
    (CUDA graphs of one call per layer, so the 24 layers' buffers stream
    from memory as they do in a step): K1 int8 and bf16 at head_dim 64
    and int8 at 100, K2 at B 16 on all nine layer shapes and the GPT-L
-   int8 head.
+   int8 head; K1 (int8, bf16) and K2 (five GPT-L shapes and the int8
+   head) again at the engine's B 128.
 3. The main path: GPT-L 384 px, random seeded weights with a random head,
    W8A16 + int8 KV cache, batch 8 + CFG 2.0, 576 tokens, then the VQ-16
    decoder to [8, 384, 384, 3]. The kernels' launch counters must read
@@ -73,6 +76,19 @@ Phases, each of which raises on a failed check (exit code != 0):
    with its plain version on the same weights and batch, in bf16 and in
    f32 compute: the loss difference and each parameter's relative
    gradient difference against stated bounds.
+13. The serving engine (`serve/engine.py`) at `bench.py`'s engine point:
+   GPT-L 384, W8A16 layers and head + int8 KV, 64 pairs (128 rows), chunk
+   64; 80 requests (16 reuse a slot) with per-request cfg 1.5 / 2.0 /
+   4.0, two with top-k 1000. The first chunk runs under
+   `torch.cuda.set_sync_debug_mode("error")` (no device-to-host read
+   inside a chunk); counters exactly 24 * steps (K1) and 121 * steps (K2:
+   five matmuls a layer and the head), steps counted by the host; every result 576 tokens in range, 8 of them
+   decoded to finite [8, 384, 384, 3]; prints img/s, TTFT, TPOT and e2e
+   p50 / p95.
+14. Greedy f32 engine == `generate` at GPT-L (2 pairs, 64 tokens).
+15. The serving app (`python -m llamagen_tpu_torch.cli.app --quantize
+   int8`, GPT-B 256 px) in a subprocess on a free port: three `GET
+   /generate` (256 x 256 PNGs) and `GET /stats` (3 completed).
 
 Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
@@ -91,6 +107,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -99,6 +116,10 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 10
 H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3, the same data sheet
 SPEC_K, SPEC_CFG = 4, 4.0  # the sampling CLI's default --spec-k, --cfg-scale
+# bench.py's engine point (64 pairs, int8 head, chunk 64); 80 requests: a
+# full wave and 16 that reuse a slot
+ENGINE_PAIRS, ENGINE_REQUESTS, ENGINE_CHUNK = 64, 80, 64
+ENGINE_ROWS = 2 * ENGINE_PAIRS  # cond + uncond rows of the engine's slots
 GPT_L_MATMULS = {"wqkv": (1024, 3072), "wo": (1024, 1024),
                  "w1": (1024, 2816), "w3": (1024, 2816), "w2": (2816, 1024)}
 
@@ -238,25 +259,87 @@ def check_decode_attention(dev):
         if not (err <= tol and same):
             raise AssertionError(f"{label} disagrees with the plain version")
         worst = max(worst, err)
-    return worst, time_decode_attention(dev)
+    worst = max(worst, check_decode_attention_engine(dev))
+    timings = time_decode_attention(dev)
+    timings.update(time_decode_attention(
+        dev, shapes=(("int8", 16, 64), ("bf16", 16, 64)), b=ENGINE_ROWS))
+    return worst, timings
+
+
+def row_tolerance(ref):
+    """[B, 1]: 4 bf16 ulps of each output row's own largest value (floor
+    2^-20), so a row that averages many cache rows to small values is held
+    as tightly as the pos-0 row that copies v_new."""
+    return 2 ** -6 * ref.float().abs().amax(-1, keepdim=True) \
+        .clamp_min(2 ** -14)
+
+
+def check_decode_attention_engine(dev):
+    """K1 at the serving engine's shape: B 128 (64 slot pairs, cond rows
+    over uncond rows, both rows of a pair at one position), GPT-L heads,
+    S 640, int8 and bf16 caches; slot positions spread as the engine
+    spreads them (0, 31, 32, 63, 575 and a finished slot held at 576),
+    three consecutive steps (31 and 63 flush at the first, 575 reaches 576,
+    the finished slot stays). Every output row to 4 bf16 ulps of its own
+    largest value (`row_tolerance`), caches, scales and tails exactly,
+    after every step."""
+    from llamagen_tpu_torch.ops.attention import (decode_attention,
+                                                  decode_attention_ref)
+    b, h, s = ENGINE_ROWS, 16, 640
+    worst = 0.0
+    for cache in ("int8", "bf16"):
+        g = torch.Generator(device=dev).manual_seed(33)
+        _, _, kv, extra = attention_state(dev, b, h, h, s, cache, 70)
+        kv_ref = kv.clone()
+        extra_ref = {k: v.clone() for k, v in extra.items()}
+        slot_pos = torch.randint(1, 575, (b // 2,), generator=g, device=dev,
+                                 dtype=torch.int32)
+        slot_pos[:6] = torch.tensor([0, 31, 32, 63, 575, 576], device=dev)
+        for step in range(3):
+            pos = torch.cat([slot_pos, slot_pos])
+            q, kv_new, _, _ = attention_state(dev, b, h, h, 1, "bf16",
+                                              80 + step)
+            out = decode_attention(q, kv_new, kv, pos, h, **extra)
+            ref = decode_attention_ref(q, kv_new, kv_ref, pos, h,
+                                       **extra_ref)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            tol = row_tolerance(ref)
+            ratio = ((out.float() - ref.float()).abs() / tol).max().item()
+            same = torch.equal(kv, kv_ref) and all(
+                torch.equal(extra[k], extra_ref[k]) for k in extra)
+            label = (f"K1 decode_attention at the engine's shape, {cache} "
+                     f"cache, B {b}, slot positions 0/31/32/63/575/576+, "
+                     f"step {step}")
+            log(f"{label}: max_abs_err {err:.3g}, row tolerances "
+                f"{tol.min().item():.3g}..{tol.max().item():.3g}, worst "
+                f"error / its row's tolerance {ratio:.3g}, "
+                f"cache/scales/tail equal: {same}")
+            if not (ratio <= 1.0 and same):
+                raise AssertionError(f"{label} disagrees with the plain "
+                                     f"version")
+            worst = max(worst, err)
+            slot_pos = torch.where(slot_pos < 576, slot_pos + 1, slot_pos)
+    return worst
 
 
 def time_decode_attention(dev, full=True,
                           shapes=(("bf16", 16, 64), ("int8", 16, 64),
-                                  ("int8", 32, 100))):
-    """K1 per call at the main path's mean decode position (pos 288), B 16,
-    S 640, one buffer set per layer (24) as in a step, for each (cache,
-    heads, head_dim) of `shapes`: by default int8 and bf16 caches at
-    GPT-L's heads (16 x 64), an int8 cache at GPT-3B's (32 x 100). With
-    `full`, also the plain version, the bound and, on the bf16 cache, SDPA
-    over the cache with the row mask (no library call reads an int8 cache
-    with row scales)."""
+                                  ("int8", 32, 100)), b=16):
+    """K1 per call at the main path's mean decode position (pos 288), B 16
+    (128: the serving engine's rows, keys "... B128"), S 640, one buffer set
+    per layer (24) as in a step, for each (cache, heads, head_dim) of
+    `shapes`: by default int8 and bf16 caches at GPT-L's heads (16 x 64),
+    an int8 cache at GPT-3B's (32 x 100). With `full`, also the plain
+    version, the bound and, on the bf16 cache, SDPA over the cache with
+    the row mask (no library call reads an int8 cache with row scales)."""
     from llamagen_tpu_torch.ops.attention import (decode_attention,
                                                   decode_attention_ref)
-    b, s, pos = 16, 640, 288
+    s, pos = 640, 288
     timings = {}
     for cache, h, d in shapes:
-        key = cache if d == 64 else f"{cache} d{d}"
+        key = (cache if d == 64 else f"{cache} d{d}") \
+            + ("" if b == 16 else f" B{b}")
         states = [attention_state(dev, b, h, h, s, cache, 100 + l, d)
                   for l in range(24)]
         ms = graph_ms([lambda st=st: decode_attention(st[0], st[1], st[2],
@@ -309,7 +392,7 @@ GPT_3B_MATMULS = {"3B wqkv": (3200, 9600), "3B wo": (3200, 3200),
 
 def check_int8_matmul(dev):
     """K2 against int8_matmul_ref at the GPT-L and GPT-3B layer shapes and
-    the GPT-L int8 head, B 16 and 1 (bf16 x) and B 80 (f32 x): one bf16
+    the GPT-L int8 head, B 16, 1 and 128 (bf16 x) and B 80 (f32 x): one bf16
     ulp of the largest output, f32 1e-5 of it. Then the times
     (`time_int8_matmul`)."""
     from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
@@ -322,7 +405,7 @@ def check_int8_matmul(dev):
         w_q, w_s = quantize_weight(
             torch.randn(k, n, generator=g, device=dev) * 0.02)
         for b, dtype in ((16, torch.bfloat16), (1, torch.bfloat16),
-                         (80, torch.float32)):
+                         (ENGINE_ROWS, torch.bfloat16), (80, torch.float32)):
             x = torch.randn(b, k, generator=g, device=dev).to(dtype)
             out = int8_matmul(x, w_q, w_s)
             ref = int8_matmul_ref(x, w_q, w_s)
@@ -338,30 +421,38 @@ def check_int8_matmul(dev):
                 raise AssertionError(f"K2 {name} B={b} disagrees")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-    return worst, time_int8_matmul(dev)
+    timings = time_int8_matmul(dev)
+    timings.update(time_int8_matmul(dev, b=ENGINE_ROWS, shapes=dict(
+        GPT_L_MATMULS, head=(1024, 16384))))
+    return worst, timings
 
 
-def time_int8_matmul(dev, full=True):
-    """K2 per call at B 16, bf16 x, on the five GPT-L layer shapes, the
-    GPT-L int8 head and the four GPT-3B layer shapes: one buffer set per
-    layer (24), so the weights stream from memory as in a step. With `full`, also the plain version, the
-    bound, `torch._weight_int8pack_mm` (torch's own W8A16 call) and bf16
-    `torch.matmul` on the dequantised weights (context)."""
+def time_int8_matmul(dev, full=True, b=16, shapes=None):
+    """K2 per call at B 16 (128: the serving engine's rows, keys "... B128"),
+    bf16 x, on `shapes` (default: the five GPT-L layer shapes, the GPT-L
+    int8 head and the four GPT-3B layer shapes): one buffer set per layer
+    (24), so the weights stream from memory as in a step. With `full`,
+    also the plain version, the bound, `torch._weight_int8pack_mm`
+    (torch's own W8A16 call) and bf16 `torch.matmul` on the dequantised
+    weights (context)."""
     from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                      int8_matmul_ref,
                                                      quantize_weight)
     g = torch.Generator(device=dev).manual_seed(12)
     timings = {}
-    shapes = dict(GPT_L_MATMULS, head=(1024, 16384), **GPT_3B_MATMULS)
+    if shapes is None:
+        shapes = dict(GPT_L_MATMULS, head=(1024, 16384), **GPT_3B_MATMULS)
     for name, (k, n) in shapes.items():
         layers = [quantize_weight(torch.randn(k, n, generator=g, device=dev)
                                   * 0.02) for _ in range(24)]
-        x = torch.randn(16, k, generator=g, device=dev).to(torch.bfloat16)
+        x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
         ms = graph_ms([lambda w=w: int8_matmul(x, *w) for w in layers])
         gbs = k * n / (ms * 1e-3) / 1e9
+        if b != 16:
+            name = f"{name} B{b}"
         if not full:
             timings[name] = dict(ms=ms)
-            log(f"K2 time {name} [16,{k}]x[{k},{n}]: kernel {ms:.4f} ms "
+            log(f"K2 time {name} [{b},{k}]x[{k},{n}]: kernel {ms:.4f} ms "
                 f"({gbs:.0f} GB/s of int8 weights)")
             del layers
             continue
@@ -370,7 +461,7 @@ def time_int8_matmul(dev, full=True):
         bf16 = graph_ms([lambda w=w: x @ w for w in w_bf16])
         del w_bf16
         bnd_ms, by = bound(nbytes(layers[0][0], layers[0][1], x)
-                           + 16 * n * 2, 2 * 16 * k * n)
+                           + b * n * 2, 2 * b * k * n)
         # torch's own W8A16 call: int8 weight [N, K], bf16 scales
         packed = [(wq.t().contiguous(), ws.to(torch.bfloat16))
                   for wq, ws in layers]
@@ -380,7 +471,7 @@ def time_int8_matmul(dev, full=True):
                                 for w in packed]))
         timings[name] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
                              library=lib, bf16=bf16)
-        log(f"K2 time {name} [16,{k}]x[{k},{n}]: kernel {ms:.4f} ms "
+        log(f"K2 time {name} [{b},{k}]x[{k},{n}]: kernel {ms:.4f} ms "
             f"({gbs:.0f} GB/s of int8 weights), plain {plain:.4f} ms, "
             f"bound {bnd_ms:.4f} ms ({by}), torch._weight_int8pack_mm "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bf16 "
@@ -480,7 +571,6 @@ def run_cli(dev):
         f"CFG): sampling {res.gen_seconds:.3f} s = {n / res.gen_seconds:.3f} "
         f"img/s, {1e3 * res.gen_seconds / TOKENS:.3f} ms/token step; whole "
         f"CLI {secs:.3f} s")
-    import numpy as np
     if res.images.shape != (8, 384, 384, 3) \
             or not np.isfinite(res.images).all() or not png_ok \
             or res.tokens.min() < 0 or res.tokens.max() >= 16384:
@@ -914,7 +1004,6 @@ def run_spec_cli(dev):
     """The speculative path through its CLIs: a random GPT-L 384 checkpoint,
     `tools quantize-ckpt --mode w4` of it as the draft checkpoint, then
     `sample_c2i --draft-gpt-model GPT-L` (k 4, CFG 4.0, bf16)."""
-    import numpy as np
     from llamagen_tpu_torch.cli import sample_c2i, tools
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "gpt_l_random.pt")
@@ -970,6 +1059,176 @@ def run_spec_greedy_f32(dev, name="GPT-L", n_layer=None):
         bad = (got != ref).nonzero()[:5].tolist()
         raise AssertionError(f"greedy speculative tokens differ at {bad}")
     return rounds
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-15: the serving engine, greedy engine == generate, the app
+# ---------------------------------------------------------------------------
+
+
+def run_engine(dev):
+    """The serving engine at `bench.py`'s engine point: GPT-L 384, W8A16
+    layers and head + int8 KV, 64 pairs, chunk 64; 80 requests (16 reuse a
+    slot) with per-request cfg 1.5 / 2.0 / 4.0, two with top-k 1000, the
+    rest unfiltered. The first chunk runs under
+    `torch.cuda.set_sync_debug_mode("error")`: a device-to-host read
+    inside a chunk fails. Counters exactly 24 * steps (K1) and 121 * steps
+    (K2), steps counted by the host; 8 results through the VQ-16
+    decoder."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.models import vq
+    from llamagen_tpu_torch.ops.attention import decode_attention
+    from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                     quantize_gpt_params)
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    model = quantize_gpt_params(gpt_model(dev, seed=51), quantize_head=True)
+    kw = dict(num_pairs=ENGINE_PAIRS, chunk=ENGINE_CHUNK,
+              compute_dtype=torch.bfloat16, cache_dtype=torch.int8)
+    ServeEngine(model, max_new_tokens=16, **kw).generate(
+        range(ENGINE_PAIRS))  # warm-up: allocator, first launches
+    torch.cuda.synchronize()
+
+    eng = ServeEngine(model, max_new_tokens=TOKENS, **kw)
+    sps = [SamplingParams(cfg_scale=(1.5, 2.0, 4.0)[i % 3],
+                          top_k=1000 if i in (5, 70) else 0)
+           for i in range(ENGINE_REQUESTS)]
+    decode_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.time()
+    reqs = [eng.submit(i * 41 % 1000, sp=sp) for i, sp in enumerate(sps)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._admit_and_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng._harvest()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k1, k2 = decode_attention.launches, int8_matmul.launches
+    steps = eng.steps_run
+    st = eng.stats()
+    n_layer = model.cfg.n_layer
+    log(f"serving engine (GPT-L 384, W8A16 layers and head + int8 KV, "
+        f"{ENGINE_PAIRS} pairs, "
+        f"chunk {ENGINE_CHUNK}, {ENGINE_REQUESTS} requests, cfg 1.5/2.0/4.0,"
+        f" 2 with top-k 1000): {secs:.3f} s = "
+        f"{ENGINE_REQUESTS / secs:.3f} img/s, {steps} steps = "
+        f"{1e3 * secs / steps:.3f} ms/step; TTFT p50 {st['ttft_p50_s']:.4f}"
+        f" s p95 {st['ttft_p95_s']:.4f} s, TPOT p50 {st['tpot_p50_s']:.5f} "
+        f"s p95 {st['tpot_p95_s']:.5f} s, e2e p50 "
+        f"{st['e2e_latency_p50_s']:.3f} s p95 {st['e2e_latency_p95_s']:.3f} "
+        f"s; launches decode_attention {k1}, int8_matmul {k2}; first chunk "
+        f"under sync debug mode 'error': no device-to-host read")
+    log(f"serving engine stats: {json.dumps(st)}")
+    if k1 != n_layer * steps or k2 != (5 * n_layer + 1) * steps:
+        raise AssertionError(f"launch counts {k1}, {k2}: expected "
+                             f"{n_layer * steps}, "
+                             f"{(5 * n_layer + 1) * steps}")
+    tokens = torch.tensor(np.stack([r.result for r in reqs]))
+    if tokens.shape != (ENGINE_REQUESTS, TOKENS) or tokens.min() < 0 \
+            or tokens.max() >= model.cfg.vocab_size \
+            or st["completed"] != ENGINE_REQUESTS \
+            or steps != 2 * TOKENS:
+        raise AssertionError(f"bad engine results {tuple(tokens.shape)}, "
+                             f"completed {st['completed']}, steps {steps}")
+    del model, eng
+    vq_model = vq.init_weights(vq.VQModel(vq_config("VQ-16"), device=dev,
+                                          dtype=torch.bfloat16))
+    imgs = vq_model.decode_code(tokens[:BATCH].to(dev).reshape(BATCH, 24, 24))
+    torch.cuda.synchronize()
+    if imgs.shape != (BATCH, 384, 384, 3) or not torch.isfinite(imgs).all():
+        raise AssertionError("engine images are not finite [8, 384, 384, 3]")
+    log(f"serving engine VQ-16 decode of {BATCH} results -> "
+        f"{tuple(imgs.shape)}, finite")
+    return {"decode_attention": k1, "int8_matmul": k2, "steps": steps,
+            "img_s": ENGINE_REQUESTS / secs}
+
+
+def run_engine_greedy_f32(dev):
+    """Greedy engine tokens equal `generate`'s: GPT-L in f32 (f32 caches,
+    K1's f32 entry), 2 pairs, 64 tokens, cfg 2.0, temperature 0. The
+    engine's first token comes from a decode step at pos 0, `generate`'s
+    from the prefill."""
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    model = gpt_model(dev, seed=61, dtype=torch.float32)
+    labels = [207, 360, 387, 974]
+    eng = ServeEngine(model, num_pairs=2, max_new_tokens=64, chunk=16,
+                      compute_dtype=torch.float32,
+                      sampling_params=SamplingParams(cfg_scale=CFG_SCALE,
+                                                     temperature=0.0))
+    got = torch.tensor(eng.generate(labels))
+    ref = generate(model, torch.tensor(labels, device=dev),
+                   max_new_tokens=64, cfg_scale=CFG_SCALE,
+                   sample_logits=False, compute_dtype=torch.float32,
+                   cache_dtype=torch.float32).cpu()
+    same = torch.equal(got, ref)
+    log(f"greedy f32 GPT-L engine (2 pairs, 4 requests, 64 tokens) == "
+        f"generate: {same} ({len(torch.unique(ref))} distinct tokens)")
+    if not same:
+        bad = (got != ref).nonzero()[:5].tolist()
+        raise AssertionError(f"greedy engine tokens differ at {bad}")
+
+
+def _png_size(png):
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR":
+        raise AssertionError("not a PNG")
+    return int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big")
+
+
+def run_app(dev):
+    """`python -m llamagen_tpu_torch.cli.app` in a subprocess at its
+    defaults (GPT-B 256 px, random weights, VQ-16, 4 slots) with
+    `--quantize int8` on a free port: three `GET /generate` with other
+    class, cfg and top-k, each a 256 x 256 PNG; `/stats` reports 3
+    completed. The server is killed at the end whatever happens."""
+    import socket
+    import urllib.request
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llamagen_tpu_torch.cli.app", "--quantize",
+         "int8", "--port", str(port), "--no-gradio", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.time()
+        while True:  # up once /stats answers
+            if proc.poll() is not None:
+                raise AssertionError(f"the app exited {proc.returncode}: "
+                                     f"{proc.stdout.read()[-2000:]}")
+            try:
+                with urllib.request.urlopen(f"{url}/stats", timeout=5):
+                    break
+            except OSError:
+                if time.time() - t0 > 180:
+                    raise AssertionError("the app did not start in 180 s")
+                time.sleep(1)
+        log(f"serving app up in {time.time() - t0:.1f} s")
+        for q in ("class_id=207&cfg_scale=4.0",
+                  "class_id=360&cfg_scale=1.5&top_k=100",
+                  "class_id=974&cfg_scale=2.5&top_k=0&temperature=0.9"):
+            t = time.time()
+            with urllib.request.urlopen(f"{url}/generate?{q}",
+                                        timeout=120) as r:
+                kind, png = r.headers["Content-Type"], r.read()
+            size = _png_size(png)
+            log(f"GET /generate?{q}: {kind}, {len(png)} bytes, {size[0]} x "
+                f"{size[1]}, {time.time() - t:.2f} s")
+            if kind != "image/png" or size != (256, 256):
+                raise AssertionError(f"/generate?{q} gave {kind} {size}")
+        with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+            st = json.loads(r.read())
+        log(f"GET /stats: {json.dumps(st)}")
+        if st["completed"] != 3 or st["running"] != 0:
+            raise AssertionError(f"/stats reports {st}")
+        if proc.poll() is not None:
+            raise AssertionError(f"the app exited {proc.returncode}")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
 
 
 # ---------------------------------------------------------------------------
@@ -1139,7 +1398,6 @@ def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
     """The training path through its CLI at GPT-L 384, batch 32. Under
     remat "full" K4's forward runs twice per layer and step (the step and
     the recompute), under "save_attn" once."""
-    import numpy as np
     from llamagen_tpu_torch.cli import train_c2i
     from llamagen_tpu_torch.ops import train_attention as ta
     kernels = (ta.train_attention_fwd, ta.train_attention_dq,
@@ -1318,6 +1576,9 @@ def main():
     phase("training CLI, remat save_attn",
           lambda d: run_train_cli(d, "save_attn", 4))
     phase("training step vs plain", run_train_step_vs_plain)
+    phase("serving engine", run_engine)
+    phase("greedy f32 engine == generate", run_engine_greedy_f32)
+    phase("serving app", run_app)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):

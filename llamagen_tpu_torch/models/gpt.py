@@ -265,11 +265,24 @@ class KVCache:
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_seq_len: int,
-               dtype: torch.dtype, device) -> KVCache:
-    """Zeroed bf16/f32 cache. An int8 cache comes from `quantize_cache`."""
+               dtype: torch.dtype, device,
+               compute_dtype: torch.dtype = torch.bfloat16) -> KVCache:
+    """Zeroed bf16/f32 cache, or an empty int8 cache (`dtype` torch.int8):
+    zero rows, bf16 scales of 1.0 and a zero tail in `compute_dtype`, as
+    JAX `init_cache` + `init_recent` start the serving engine's cache. An
+    int8 cache after a prefill comes from `quantize_cache`."""
     f2 = 2 * cfg.kv_heads * cfg.head_dim
-    return KVCache([torch.zeros(batch, max_seq_len, f2, dtype=dtype,
-                                device=device) for _ in range(cfg.n_layer)])
+
+    def per_layer(shape, dt, fill=0.0):
+        return [torch.full(shape, fill, dtype=dt, device=device)
+                for _ in range(cfg.n_layer)]
+
+    kv = per_layer((batch, max_seq_len, f2), dtype)
+    if dtype != torch.int8:
+        return KVCache(kv)
+    return KVCache(kv, kv_scale=per_layer((batch, max_seq_len, 2),
+                                          torch.bfloat16, 1.0),
+                   tail=per_layer((batch, TAIL, f2), compute_dtype))
 
 
 def quantize_cache(cache: KVCache, cfg: GPTConfig,
@@ -391,19 +404,22 @@ def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
 
 
 @torch.no_grad()
-def decode_step(model: Transformer, token: torch.Tensor, pos: int,
-                cache: KVCache,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """One token per row at position `pos`; runs the decode-attention
-    kernel in every layer and updates the cache in place. Returns f32
-    logits [B, V]."""
+def decode_step_slots(model: Transformer, emb: torch.Tensor,
+                      pos: torch.Tensor, cache: KVCache,
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      prefix_pad: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One step with a position per row (JAX `_decode_step_slots_pallas`,
+    serve/engine.py:160-172): emb [B, D] input embeddings (token, class or
+    null), pos int32 [B]. Rope rows come from `freqs_cis[pos]`; the
+    decode-attention kernel runs in every layer and updates the cache in
+    place. The caller keeps every pos inside the cache: a position tensor
+    is not read back to the host. prefix_pad: optional int32 [B], positions
+    below it are masked. Returns f32 logits [B, V]."""
     cfg = model.cfg
-    b = token.shape[0]
-    if not 0 <= pos < cache.kv[0].shape[1]:  # the kernel writes row pos
-        raise ValueError(f"pos {pos} outside the cache")
-    h = model.tok_embeddings.weight[token].to(compute_dtype)
-    pos_t = batch_positions(pos, b, h.device)
-    freqs = model.freqs_cis[pos]
+    b = emb.shape[0]
+    h = emb.to(compute_dtype)
+    freqs = model.freqs_cis[pos]  # [B, D//2, 2]
     f, f_kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
 
     def attend(l, qkv):
@@ -411,11 +427,27 @@ def decode_step(model: Transformer, token: torch.Tensor, pos: int,
         q = rope_heads(q, freqs).reshape(b, f)
         k = rope_heads(k, freqs).reshape(b, f_kv)
         return decode_attention(
-            q, torch.cat([k, v], dim=-1), cache.kv[l], pos_t, cfg.n_head,
+            q, torch.cat([k, v], dim=-1), cache.kv[l], pos, cfg.n_head,
+            prefix_pad=prefix_pad,
             kv_scale=cache.kv_scale[l] if cache.quantized else None,
             tail=cache.tail[l] if cache.quantized else None)
 
     return decode_stack(model, h, attend)
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, token: torch.Tensor, pos: int,
+                cache: KVCache,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """One token per row at position `pos` (`decode_step_slots` with the
+    token embeddings and one position for every row). Returns f32 logits
+    [B, V]."""
+    if not 0 <= pos < cache.kv[0].shape[1]:  # the kernel writes row pos
+        raise ValueError(f"pos {pos} outside the cache")
+    emb = model.tok_embeddings.weight[token]
+    return decode_step_slots(model, emb,
+                             batch_positions(pos, token.shape[0], emb.device),
+                             cache, compute_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -177,7 +177,10 @@ def decode_attention(q: torch.Tensor, kv_new: torch.Tensor,
     kv_cache:   [B, S, 2 * F_kv] bf16 / f32 / int8, updated in place: the
                 new row is written at pos (bf16/f32), or the int8 tail is
                 flushed into rows [bnd, bnd + 32) when pos % 32 == 31
-    pos:        int, or int32 [B] per-row positions (must lie in [0, S))
+    pos:        int, or int32 [B] per-row positions (must lie in [0, S);
+                an int is checked, a tensor is not, since that would read
+                the device: its caller keeps it inside, as the serving
+                engine does from its host mirror)
     n_head:     query heads; query head h reads kv head h // (H / H_kv)
     prefix_pad: optional int32 [B]: positions < prefix_pad[b] are masked
     kv_scale:   int8 caches: bf16 [B, S, 2] (k, v) row scales, in place

@@ -3,7 +3,7 @@ the PyTorch port on one GPU.
 
 Not a pytest file:
 
-    python tests/bench_torch_sample.py [out.json]
+    python tests/bench_torch_sample.py [out.json] [--w8a16-only]
 
 GPT-L 384, random seeded weights with a random head, batch 8 + CFG:
 
@@ -28,6 +28,7 @@ wrapper call (`int8_matmul` and `w4_matmul` at wqkv B 16,
 at C 5, pos 288): host µs per call over 2000 calls enqueued back to
 back. Run it in a copy of an earlier tree too (copied into its `tests/`)
 to compare trees, in alternating pairs.
+`--w8a16-only` runs the W8A16 path alone (for paired runs of two trees).
 Prints a JSON object as its last line (and writes it to `out.json` when
 given). Needs a CUDA device.
 """
@@ -131,7 +132,9 @@ def _wrapper_host_us(w4_model, w8_model, cache, cache8, dev, calls=2000):
 
 
 def main(argv):
-    out_path = argv[0] if argv else None
+    only_w8 = "--w8a16-only" in argv
+    paths = [a for a in argv if not a.startswith("--")]
+    out_path = paths[0] if paths else None
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from llamagen_tpu_torch.config import find_multiple, gpt_config
@@ -201,12 +204,15 @@ def main(argv):
 
     w8_steps(8, 257)  # warm-up: kernel build, allocator, cuBLAS plans
     res["w8a16_int8kv_step"] = _profile(w8_steps)
-    w4_steps(8)
-    res["w4_step"] = _profile(w4_steps)
-    spec()
-    res["spec_round"] = _profile(spec)
-    res["host_us_per_call"] = _wrapper_host_us(w4, w8, cache, cache8, dev)
-    for path in ("w8a16_int8kv_step", "w4_step", "spec_round"):
+    if not only_w8:
+        w4_steps(8)
+        res["w4_step"] = _profile(w4_steps)
+        spec()
+        res["spec_round"] = _profile(spec)
+        res["host_us_per_call"] = _wrapper_host_us(w4, w8, cache, cache8,
+                                                   dev)
+    for path in ("w8a16_int8kv_step", "w4_step", "spec_round")[
+            :1 if only_w8 else 3]:
         r = res[path]
         print(f"{path} (x{r['units']}): wall {r['wall_ms']:.2f} ms, device "
               f"busy {r['device_busy_ms']:.2f} ms (idle "
@@ -214,7 +220,8 @@ def main(argv):
         for g, ms in sorted(r["device_ms_by_group"].items(),
                             key=lambda kv: -kv[1]):
             print(f"  {ms:8.3f} ms  {g}")
-    print(f"host us per wrapper call: {res['host_us_per_call']}")
+    if not only_w8:
+        print(f"host us per wrapper call: {res['host_us_per_call']}")
     line = json.dumps(res)
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

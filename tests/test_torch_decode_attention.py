@@ -493,6 +493,45 @@ def test_cuda_kernel_steps_across_flushes(cuda, q_dtype, cache, head_dim,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+def test_cuda_kernel_serving_engine_steps(cuda, cache):
+    """The serving engine's shape: B 128 (64 slot pairs, cond rows over
+    uncond rows, both rows of a pair at one position), GPT-L heads (16 x
+    64), S 640, bf16 q; slot positions spread as the engine spreads them
+    (0, 31, 32, 63, 575 and a finished slot held at 576). Three consecutive
+    steps: the active slots advance (31 and 63 flush at the first step, 575
+    reaches 576), the finished one stays; each step's output matches the
+    plain version run on its own copy of the state, every row to 4 bf16
+    ulps of its own largest value, and the whole state matches exactly."""
+    g = torch.Generator().manual_seed(32)
+    b, h, s = 128, 16, 640
+    q, kv_new, kv, extra = _card_state(cuda, g, b, h, h, 64, s, "bf16", cache)
+    ref_kv = kv.clone()
+    ref_extra = {k: v.clone() for k, v in extra.items()}
+    slot_pos = torch.randint(1, 575, (b // 2,), generator=g,
+                             dtype=torch.int32)
+    slot_pos[:6] = torch.tensor([0, 31, 32, 63, 575, 576])
+    for step in range(3):
+        pos = torch.cat([slot_pos, slot_pos]).to(cuda)
+        q = torch.randn(q.shape, generator=g).to(cuda, torch.bfloat16)
+        kv_new = torch.randn(kv_new.shape, generator=g).to(cuda,
+                                                           torch.bfloat16)
+        before = decode_attention.launches
+        out = decode_attention(q, kv_new, kv, pos, h, **extra)
+        ref = decode_attention_ref(q, kv_new, ref_kv, pos, h, **ref_extra)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        tol = 2 ** -6 * ref.float().abs().amax(-1, keepdim=True) \
+            .clamp_min(2 ** -14)
+        ratio = ((out.float() - ref.float()).abs() / tol).max().item()
+        assert ratio <= 1.0, (step, ratio)
+        assert torch.equal(kv, ref_kv), step
+        for k in extra:
+            assert torch.equal(extra[k], ref_extra[k]), (step, k)
+        slot_pos = torch.where(slot_pos < 576, slot_pos + 1, slot_pos)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("head_dim", [32, 96, 80])
 def test_cuda_kernel_raises_on_other_head_dims(cuda, head_dim):
     """CUDA tensors at a head_dim the kernels do not take raise, in every

@@ -212,12 +212,13 @@ SHAPES = {"wqkv": (1024, 3072), "wo": (1024, 1024), "w1": (1024, 2816),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 16, 17, 80, 320])
+@pytest.mark.parametrize("b", [1, 16, 17, 32, 80, 128, 320])
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_cuda_kernel_matches_plain(cuda, b, shape):
     """The CUDA kernel against int8_matmul_ref on the card, at the GPT-L
     and GPT-3B layer shapes, the int8 head and ragged K and N, B 1..320
-    (8-row tiles, 96-row passes): bf16 to one output ulp, f32 to 1e-5
+    (8-row tiles, 96-row passes; 16 the batch-8 + CFG step, 32 and 128 the
+    serving engine's 16 and 64 pairs): bf16 to one output ulp, f32 to 1e-5
     relative (the f32 sums run in another order); one launch a call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     k, n = SHAPES[shape]
