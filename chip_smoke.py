@@ -46,10 +46,10 @@ Phases, each of which raises on a failed check (exit code != 0):
    prefill takes the dequantised fallback) and 24 * 575 (K1). (Phase 5
    teacher-forces the W4 model too, with K1 + K3 and with their plain
    versions.)
-9. The speculative path: bf16 GPT-L target, a W4 copy of it drafting
-   (self-speculation), k = 4, batch 8 + CFG 4.0, sampled, 576 tokens;
-   counters exactly 24 * (k + 2) * rounds (K5) and 5 * 24 * (k + 1) *
-   rounds (K3). Then the same through the CLIs (`tools quantize-ckpt
+9. The speculative path: bf16 GPT-L target cut to 12 layers, a W4 copy
+   of it drafting (self-speculation), k = 4, batch 8 + CFG 4.0, sampled,
+   576 tokens; counters exactly 12 * (k + 2) * rounds (K5) and 5 * 12 *
+   (k + 1) * rounds (K3). Then the same at full depth through the CLIs (`tools quantize-ckpt
    --mode w4` writes the draft checkpoint, `sample_c2i
    --draft-gpt-model`), and a greedy f32 check: 64 tokens of
    `generate_speculative` equal `generate`'s for the same target, at
@@ -89,12 +89,41 @@ Phases, each of which raises on a failed check (exit code != 0):
 15. The serving app (`python -m llamagen_tpu_torch.cli.app --quantize
    int8`, GPT-B 256 px) in a subprocess on a free port: three `GET
    /generate` (256 x 256 PNGs) and `GET /stats` (3 completed).
+16. The T5 caption encoder (`text/t5.py::T5Encoder`) at flan-t5-xl's
+   widths, random weights: bf16 against f32 on the card, 4 x 120 ids with
+   right-padded masks.
+17. The t2i sampling path: GPT-XL 512 px (120 caption tokens + 1,024
+   image tokens), bf16 weights and cache, 4 captions left-padded by 0,
+   60, 100 and 119 + CFG 7.5, top-k 1000; K1 with `prefix_pad` exactly
+   36 * 1023 times; the VQ-16 decoder to finite [4, 512, 512, 3].
+18. The t2i serving engine at `tests/bench_t2i_engine.py`'s point (GPT-XL
+   256 px, W8A16 layers and head + int8 KV, 8 pairs, 24 caption requests
+   with pads in [0, 60)); the first admission and chunk under sync-debug
+   "error"; the counters read around every admission prefill and every
+   chunk: exactly 0 (K1) and 181 (K2) per admission, 36 (K1) and 181 (K2)
+   per step; img/s, TTFT, TPOT and e2e.
+19. Greedy f32 t2i engine == `generate(emb_masks=...)` (GPT-XL width, 2
+   layers, W8A16 + int8 KV, 48 tokens across the flushes at 127 and 159).
+20. The t2i speculative path: GPT-XL 512 at full depth, bf16 target, a W4
+   copy of it drafting, k 4, the 4 padded captions of phase 17 + CFG 7.5,
+   top-k 1000, 1,024 tokens; K5 with `prefix_pad` in every draft and
+   verify step: counters exactly 36 * (k + 2) * rounds (K5) and 5 * 36 *
+   (k + 1) * rounds (K3), K1 none.
+21. Greedy f32 t2i speculative == `generate` (GPT-XL width, 2 layers, W4
+   self-draft, k 4; K5 at 20 heads with `prefix_pad`, counted).
+22. The t2i CLI (`llamagen_tpu_torch.cli.sample_t2i`) at its defaults.
+
+Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
+t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
+versions, K2 at the GPT-XL shapes (B 16 and the admission's 1,920 rows),
+and times them there.
 
 Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
 last line is `{"ok": true, "device": {...}}`; the line before it is the
 kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
-library time), the one before that the card's name and power limit.
+library time; then K1, K2 and K5 again at the t2i shapes), the one before
+that the card's name and power limit.
 Needs a CUDA device; runs nothing without one.
 """
 
@@ -116,10 +145,22 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 10
 H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3, the same data sheet
 SPEC_K, SPEC_CFG = 4, 4.0  # the sampling CLI's default --spec-k, --cfg-scale
+SPEC_LAYERS = 12  # the speculative path's depth (its CLI runs all 24)
 # bench.py's engine point (64 pairs, int8 head, chunk 64); 80 requests: a
 # full wave and 16 that reuse a slot
 ENGINE_PAIRS, ENGINE_REQUESTS, ENGINE_CHUNK = 64, 80, 64
 ENGINE_ROWS = 2 * ENGINE_PAIRS  # cond + uncond rows of the engine's slots
+# t2i: GPT-XL, 120 caption tokens of T5 width 2048; sampling at 512 px
+# (1,024 tokens), 4 captions + CFG 7.5, top-k 1000 (the JAX CLI's
+# defaults), left pads T2I_PADS; the engine at `tests/bench_t2i_engine.py`'s
+# point: 256 px, W8A16 layers and head + int8 KV, 8 pairs, 24 requests
+# with pads in [0, 60) from RandomState(0); admission prefills of up to 8
+# pairs, 2 * 8 * 120 rows
+T2I_T, T2I_CAPTION, T2I_BATCH, T2I_CFG, T2I_TOP_K = 120, 2048, 4, 7.5, 1000
+T2I_PADS = (0, 60, 100, 119)
+T2I_PAD_CASES = (0, 60, 96, 100, 119)  # the kernel checks' pads
+T2I_ENGINE_PAIRS, T2I_ENGINE_REQUESTS, T2I_ENGINE_CHUNK = 8, 24, 64
+T2I_ADMIT_ROWS = 2 * 8 * T2I_T
 GPT_L_MATMULS = {"wqkv": (1024, 3072), "wo": (1024, 1024),
                  "w1": (1024, 2816), "w3": (1024, 2816), "w2": (2816, 1024)}
 
@@ -203,36 +244,62 @@ def attention_state(dev, b, h, h_kv, s, cache, seed, d=64):
     return q, kv_new, kv, extra
 
 
+def t2i_rows(dev, b, s, g):
+    """Per-row positions and left pads as the t2i paths give them (120
+    caption rows): positions in [120, S) with 120, 127 (int8 flush of tail
+    rows [96, 128), pad rows among them), 128, 159 and S - 1 first; pads
+    0, 60, 96 (every valid caption row in the int8 tail), 100 and 119 (one
+    valid token) in turn."""
+    pos = torch.randint(120, s, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    first = torch.tensor([120, 127, 128, 159, s - 1], dtype=torch.int32,
+                         device=dev)[:b]
+    pos[:len(first)] = first
+    pads = torch.tensor([T2I_PAD_CASES[i % len(T2I_PAD_CASES)]
+                         for i in range(b)], dtype=torch.int32, device=dev)
+    return pos, pads
+
+
 def check_decode_attention(dev):
     """K1 against decode_attention_ref: B 16, S 640, bf16 and int8 caches,
     GPT-L heads (16 x 64) and GPT-3B heads (32 x 100), positions around
     the int8 flush and the cache's end, per-row positions with prefix
-    padding, GQA; output to 4 bf16 ulps of its largest value, caches,
-    scales and tails exactly. Then the times (`time_decode_attention`)."""
+    padding, GQA; GPT-XL's 20 heads x 64 with the t2i paths' positions and
+    pads (`t2i_rows`) at their shapes (bf16: B 8, S 1152, 512 px `generate`;
+    int8: B 16, S 384, the 256 px engine) and at B 4 (splits); output to 4
+    bf16 ulps of its largest value, caches, scales and tails exactly. Then
+    the times (`time_decode_attention`)."""
     from llamagen_tpu_torch.ops.attention import (decode_attention,
                                                   decode_attention_ref)
-    b, s = 16, 640
     worst = 0.0
     g = torch.Generator(device=dev).manual_seed(7)
-    cases = ([("bf16", p, 16, None, 64) for p in (0, 1, 127, 128, 575)]
-             + [("int8", p, 16, None, 64) for p in (0, 30, 31, 32, 575)]
-             + [("bf16", "per-row", 16, "pad", 64),
-                ("int8", "per-row", 16, "pad", 64),
-                ("bf16", 300, 4, None, 64), ("int8", 415, 4, "pad", 64)]
-             + [(c, p, 32, None, 100) for c in ("bf16", "int8")
+    # (cache, pos, heads, kv heads, pad, head_dim, B, S)
+    cases = ([("bf16", p, 16, 16, None, 64) for p in (0, 1, 127, 128, 575)]
+             + [("int8", p, 16, 16, None, 64) for p in (0, 30, 31, 32, 575)]
+             + [("bf16", "per-row", 16, 16, "pad", 64),
+                ("int8", "per-row", 16, 16, "pad", 64),
+                ("bf16", 300, 16, 4, None, 64),
+                ("int8", 415, 16, 4, "pad", 64)]
+             + [(c, p, 32, 32, None, 100) for c in ("bf16", "int8")
                 for p in (31, 288, 575)]
-             + [("int8", "per-row", 32, "pad", 100),
-                ("bf16", "per-row", 16, "pad", 100)])
-    for i, (cache, pos, h_kv, pad, d) in enumerate(cases):
-        h = 16 if d == 64 else 32
+             + [("int8", "per-row", 32, 32, "pad", 100),
+                ("bf16", "per-row", 16, 16, "pad", 100)])
+    cases = [c + (16, 640) for c in cases] + [
+        ("bf16", "t2i", 20, 20, "t2i", 64, 8, 1152),
+        ("bf16", "t2i", 20, 20, "t2i", 64, 4, 1152),
+        ("int8", "t2i", 20, 20, "t2i", 64, 16, 384),
+        ("int8", "t2i", 20, 20, "t2i", 64, 4, 384)]
+    for i, (cache, pos, h, h_kv, pad, d, b, s) in enumerate(cases):
         q, kv_new, kv, extra = attention_state(dev, b, h, h_kv, s, cache, i,
                                                d)
+        pad_t = None
+        if pos == "t2i":
+            pos, pad_t = t2i_rows(dev, b, s, g)
         if pos == "per-row":
             pos = torch.randint(1, 576, (b,), generator=g, device=dev,
                                 dtype=torch.int32)
             pos[:4] = torch.tensor([31, 63, 64, 575], device=dev)
-        pad_t = None
-        if pad:  # masked left padding, never past the row's own position
+        if pad == "pad":  # masked left padding, never past the row's position
             pad_t = torch.minimum(
                 torch.randint(0, 40, (b,), generator=g, device=dev,
                               dtype=torch.int32),
@@ -250,9 +317,11 @@ def check_decode_attention(dev):
         tol = 2 ** -6 * max(1.0, ref.float().abs().max().item())
         same = torch.equal(kv, kv_ref) and all(
             torch.equal(extra[k], extra_ref[k]) for k in extra)
-        label = (f"K1 decode_attention {cache} cache, head_dim {d}, pos "
+        label = (f"K1 decode_attention {cache} cache, B {b}, S {s}, "
+                 f"head_dim {d}, pos "
                  f"{'per-row' if torch.is_tensor(pos) else pos}, "
-                 f"H/H_kv {h}/{h_kv}, prefix_pad {'yes' if pad else 'no'}")
+                 f"H/H_kv {h}/{h_kv}, prefix_pad "
+                 f"{'no' if pad is None else pad}")
         log(f"{label}: max_abs_err {err:.3g} (tol {tol:.3g}, "
             f"{err / max(1.0, ref.float().abs().max().item()):.3g} of the "
             f"largest output), cache/scales/tail equal: {same}")
@@ -263,6 +332,14 @@ def check_decode_attention(dev):
     timings = time_decode_attention(dev)
     timings.update(time_decode_attention(
         dev, shapes=(("int8", 16, 64), ("bf16", 16, 64)), b=ENGINE_ROWS))
+    # the t2i paths: bf16 at 512 px (B 8, S 1152, mean position 632),
+    # int8 in the 256 px engine (B 16, S 384, mean position 248)
+    timings.update(time_decode_attention(
+        dev, shapes=(("bf16", 20, 64),), b=2 * T2I_BATCH, s=1152, pos=632,
+        pads=T2I_PADS, tag=" t2i"))
+    timings.update(time_decode_attention(
+        dev, shapes=(("int8", 20, 64),), b=2 * T2I_ENGINE_PAIRS, s=384,
+        pos=248, pads=T2I_PADS, tag=" t2i"))
     return worst, timings
 
 
@@ -325,60 +402,74 @@ def check_decode_attention_engine(dev):
 
 def time_decode_attention(dev, full=True,
                           shapes=(("bf16", 16, 64), ("int8", 16, 64),
-                                  ("int8", 32, 100)), b=16):
+                                  ("int8", 32, 100)), b=16, s=640, pos=288,
+                          pads=None, tag=""):
     """K1 per call at the main path's mean decode position (pos 288), B 16
     (128: the serving engine's rows, keys "... B128"), S 640, one buffer set
     per layer (24) as in a step, for each (cache, heads, head_dim) of
     `shapes`: by default int8 and bf16 caches at GPT-L's heads (16 x 64),
-    an int8 cache at GPT-3B's (32 x 100). With `full`, also the plain
-    version, the bound and, on the bf16 cache, SDPA over the cache with
-    the row mask (no library call reads an int8 cache with row scales)."""
+    an int8 cache at GPT-3B's (32 x 100). `s`, `pos` and `pads` (left pads
+    taken by the rows in turn, as `prefix_pad`) give the t2i paths' calls
+    (keys "... t2i"). With `full`, also the plain version, the bound and,
+    on the bf16 cache, SDPA over the cache with the row mask (no library
+    call reads an int8 cache with row scales)."""
     from llamagen_tpu_torch.ops.attention import (decode_attention,
                                                   decode_attention_ref)
-    s, pos = 640, 288
     timings = {}
+    pad_l = [0] * b if pads is None else [pads[i % len(pads)]
+                                          for i in range(b)]
+    pad_t = None if pads is None else torch.tensor(pad_l, dtype=torch.int32,
+                                                   device=dev)
     for cache, h, d in shapes:
         key = (cache if d == 64 else f"{cache} d{d}") \
-            + ("" if b == 16 else f" B{b}")
+            + ("" if b == 16 else f" B{b}") + tag
         states = [attention_state(dev, b, h, h, s, cache, 100 + l, d)
                   for l in range(24)]
-        ms = graph_ms([lambda st=st: decode_attention(st[0], st[1], st[2],
-                                                      pos, h, **st[3])
-                       for st in states])
+        ms = graph_ms([lambda st=st: decode_attention(
+            st[0], st[1], st[2], pos, h, prefix_pad=pad_t, **st[3])
+            for st in states])
         if not full:
             timings[key] = dict(ms=ms)
             log(f"K1 time, {cache} cache, B {b}, H {h} x {d}, pos {pos}: "
                 f"kernel {ms:.4f} ms")
             continue
         plain = graph_ms([lambda st=st: decode_attention_ref(
-            st[0], st[1], st[2], pos, h, **st[3]) for st in states])
-        # bytes one call must move: q, kv_new and out, the rows [0, pos]
-        # (int8: rows below bnd = pos - pos % 32 int8 with their bf16
-        # scales, rows [bnd, pos) from the bf16 tail, row pos from kv_new)
+            st[0], st[1], st[2], pos, h, prefix_pad=pad_t, **st[3])
+            for st in states])
+        # bytes one call must move: q, kv_new and out, each row's rows
+        # [pad, pos] (int8: rows below bnd = pos - pos % 32 int8 with their
+        # bf16 scales, rows [bnd, pos) from the bf16 tail, row pos from
+        # kv_new), and the row it writes (cache or tail)
         q, kv_new, kv, extra = states[0]
         row = kv.shape[2]
         bnd = pos - pos % 32 if cache == "int8" else pos
-        moved = (nbytes(q, kv_new, q) + b * bnd * row * kv.element_size()
-                 + b * (pos - bnd) * row * 2
-                 + (b * bnd * 4 if cache == "int8" else 0)
-                 + b * row * 2)  # the row it writes (cache or tail)
-        bnd_ms, by = bound(moved, 4 * b * h * d * (pos + 1))
+        moved = nbytes(q, kv_new, q) + b * row * 2
+        for pd in pad_l:
+            lo = min(max(pd, bnd), pos)
+            moved += max(0, bnd - pd) * row * kv.element_size() \
+                + (pos - lo) * row * 2 \
+                + (max(0, bnd - pd) * 4 if cache == "int8" else 0)
+        bnd_ms, by = bound(moved, sum(4 * h * d * (pos + 1 - pd)
+                                      for pd in pad_l))
         lib = None
-        if cache == "bf16":  # SDPA over the cache with a causal row mask
+        if cache == "bf16":  # SDPA over the cache with the row mask
             f = h * d
             qs = [st[0].view(b, h, 1, d) for st in states]
             ks = [st[2][..., :f].view(b, s, h, d).transpose(1, 2)
                   for st in states]
             vs = [st[2][..., f:].view(b, s, h, d).transpose(1, 2)
                   for st in states]
-            mask = (torch.arange(s, device=dev) <= pos).view(1, 1, 1, s)
+            cols = torch.arange(s, device=dev)
+            mask = ((cols <= pos)[None, :] & (cols[None, :] >= torch.tensor(
+                pad_l, device=dev)[:, None])).view(b, 1, 1, s)
             lib = library_time("K1 library (SDPA)", lambda: graph_ms(
                 [lambda i=i: F.scaled_dot_product_attention(
                     qs[i], ks[i], vs[i], attn_mask=mask)
                  for i in range(len(states))]))
         timings[key] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
                             library=lib)
-        log(f"K1 time, {cache} cache, B {b}, H {h} x {d}, pos {pos}, S {s}:"
+        log(f"K1 time, {cache} cache, B {b}, H {h} x {d}, pos {pos}, S {s}"
+            f"{'' if pads is None else f', prefix_pad {pads} in turn'}:"
             f" kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} "
             f"ms ({by}), SDPA "
             f"{'n/a (int8 cache)' if lib is None else f'{lib:.4f} ms'}")
@@ -388,24 +479,35 @@ def time_decode_attention(dev, full=True,
 
 GPT_3B_MATMULS = {"3B wqkv": (3200, 9600), "3B wo": (3200, 3200),
                   "3B w1": (3200, 8704), "3B w2": (8704, 3200)}
+# GPT-XL (the t2i model) with its int8 head; w3 has w1's shape
+GPT_XL_MATMULS = {"XL wqkv": (1280, 3840), "XL wo": (1280, 1280),
+                  "XL w1": (1280, 3584), "XL w2": (3584, 1280),
+                  "XL head": (1280, 16384)}
 
 
 def check_int8_matmul(dev):
-    """K2 against int8_matmul_ref at the GPT-L and GPT-3B layer shapes and
-    the GPT-L int8 head, B 16, 1 and 128 (bf16 x) and B 80 (f32 x): one bf16
-    ulp of the largest output, f32 1e-5 of it. Then the times
-    (`time_int8_matmul`)."""
+    """K2 against int8_matmul_ref at the GPT-L, GPT-3B and GPT-XL layer
+    shapes and the GPT-L and GPT-XL int8 heads, B 16, 1 and 128 (bf16 x)
+    and B 80 (f32 x), the GPT-XL layer shapes also at the t2i engine's
+    admission prefill (2 * 8 pairs * 120 = 1,920 rows: 20 passes of 96;
+    its head runs on the last position only): one bf16 ulp of the
+    largest output, f32 1e-5 of it. Then the times (`time_int8_matmul`)."""
     from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                      int8_matmul_ref,
                                                      quantize_weight)
     g = torch.Generator(device=dev).manual_seed(11)
     worst = 0.0
-    shapes = dict(GPT_L_MATMULS, head=(1024, 16384), **GPT_3B_MATMULS)
+    shapes = dict(GPT_L_MATMULS, head=(1024, 16384), **GPT_3B_MATMULS,
+                  **GPT_XL_MATMULS)
     for name, (k, n) in shapes.items():
         w_q, w_s = quantize_weight(
             torch.randn(k, n, generator=g, device=dev) * 0.02)
-        for b, dtype in ((16, torch.bfloat16), (1, torch.bfloat16),
-                         (ENGINE_ROWS, torch.bfloat16), (80, torch.float32)):
+        rows = ((16, torch.bfloat16), (1, torch.bfloat16),
+                (ENGINE_ROWS, torch.bfloat16), (80, torch.float32))
+        if name in GPT_XL_MATMULS and name != "XL head":
+            rows += ((T2I_ADMIT_ROWS, torch.bfloat16),
+                     (T2I_ADMIT_ROWS, torch.float32))
+        for b, dtype in rows:
             x = torch.randn(b, k, generator=g, device=dev).to(dtype)
             out = int8_matmul(x, w_q, w_s)
             ref = int8_matmul_ref(x, w_q, w_s)
@@ -424,17 +526,24 @@ def check_int8_matmul(dev):
     timings = time_int8_matmul(dev)
     timings.update(time_int8_matmul(dev, b=ENGINE_ROWS, shapes=dict(
         GPT_L_MATMULS, head=(1024, 16384))))
+    # the t2i engine: 16 rows a step, 1,920 at an admission of 8 pairs
+    timings.update(time_int8_matmul(dev, b=2 * T2I_ENGINE_PAIRS,
+                                    shapes=GPT_XL_MATMULS, tag=" t2i"))
+    timings.update(time_int8_matmul(dev, b=T2I_ADMIT_ROWS, shapes={
+        k: v for k, v in GPT_XL_MATMULS.items() if k != "XL head"},
+        tag=" t2i"))  # the admission's head runs on its last rows only
     return worst, timings
 
 
-def time_int8_matmul(dev, full=True, b=16, shapes=None):
+def time_int8_matmul(dev, full=True, b=16, shapes=None, tag=""):
     """K2 per call at B 16 (128: the serving engine's rows, keys "... B128"),
     bf16 x, on `shapes` (default: the five GPT-L layer shapes, the GPT-L
     int8 head and the four GPT-3B layer shapes): one buffer set per layer
     (24), so the weights stream from memory as in a step. With `full`,
     also the plain version, the bound, `torch._weight_int8pack_mm`
     (torch's own W8A16 call) and bf16 `torch.matmul` on the dequantised
-    weights (context)."""
+    weights (context). `tag` ends every key ("... t2i": the t2i engine's
+    16 rows are not the main path's B 16)."""
     from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                      int8_matmul_ref,
                                                      quantize_weight)
@@ -450,6 +559,7 @@ def time_int8_matmul(dev, full=True, b=16, shapes=None):
         gbs = k * n / (ms * 1e-3) / 1e9
         if b != 16:
             name = f"{name} B{b}"
+        name += tag
         if not full:
             timings[name] = dict(ms=ms)
             log(f"K2 time {name} [{b},{k}]x[{k},{n}]: kernel {ms:.4f} ms "
@@ -794,10 +904,10 @@ def check_chunk_attention(dev):
     g = torch.Generator(device=dev).manual_seed(17)
     worst = 0.0
 
-    def compare(label, q, kv_new, kv, pos, pad, h_kv):
+    def compare(label, q, kv_new, kv, pos, pad, h_kv, heads=h):
         kv_ref = kv.clone()
-        out = chunk_decode_attention(q, kv_new, kv, pos, h, pad)
-        ref = chunk_decode_attention_ref(q, kv_new, kv_ref, pos, h, pad)
+        out = chunk_decode_attention(q, kv_new, kv, pos, heads, pad)
+        ref = chunk_decode_attention_ref(q, kv_new, kv_ref, pos, heads, pad)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         rel = 2 ** -6 if q.dtype == torch.bfloat16 else 1e-5
@@ -828,6 +938,19 @@ def check_chunk_attention(dev):
                  f"H/H_kv {h}/{h_kv}, prefix_pad {'yes' if padded else 'no'}")
         worst = max(worst, compare(label, q, kv_new, kv, pos, pad, h_kv))
 
+    # GPT-XL's 20 heads with the t2i paths' positions and pads: the
+    # speculative 512 px shape (B 8 = 4 captions + CFG, S 1280), B 16, and
+    # B 4 (80 blocks: split over the cache rows)
+    for j, (c, bt) in enumerate(((5, 8), (1, 8), (5, 16), (5, 4), (8, 4))):
+        st = 1280
+        q, kv_new, kv = chunk_state(dev, bt, 20, 20, st, c, torch.bfloat16,
+                                    70 + j)
+        pos, pad = t2i_rows(dev, bt, st - c + 1, g)
+        label = (f"chunk_decode_attention C {c}, bf16 cache, B {bt}, S {st},"
+                 f" H/H_kv 20/20, t2i positions and prefix_pad")
+        worst = max(worst, compare(label, q, kv_new, kv, pos, pad, 20,
+                                   heads=20))
+
     # a backward jump: a verify chunk at 300, one token committed, the next
     # chunk at 301 over the rows the first one wrote (rows 301..304 redone)
     q, kv_new, kv = chunk_state(dev, b, h, h, s, 5, torch.bfloat16, 60)
@@ -836,36 +959,48 @@ def check_chunk_attention(dev):
     q2, kv2, _ = chunk_state(dev, b, h, h, s, 5, torch.bfloat16, 61)
     worst = max(worst, compare("backward jump, call 2 at pos 301", q2, kv2,
                                kv, pos + 1, None, h))
-    return worst, time_chunk_attention(dev)
+    timings = time_chunk_attention(dev)
+    timings.update(time_chunk_attention(dev, cs=(5,), b=8, h=20, s=1280,
+                                        pos=632, pads=T2I_PADS, tag=" t2i"))
+    return worst, timings
 
 
-def time_chunk_attention(dev, full=True):
+def time_chunk_attention(dev, full=True, cs=(5, 1, 8), b=16, h=16, s=640,
+                         pos=288, pads=None, tag=""):
     """K5 per call at the main path's mean position (pos 288), B 16, 16
-    heads x 64, S 640, bf16, C 5, 1 and 8, one buffer set per layer. With
-    `full`, also the plain version, the bound, SDPA with the same row mask
-    over the cache, and SDPA after the cache write it does not make
-    (`kv[:, pos:pos + C] = kv_new`, K5's whole work)."""
+    heads x 64, S 640, bf16, C 5, 1 and 8, one buffer set per layer; `b`,
+    `h`, `s`, `pos` and `pads` (left pads taken by the rows in turn) give
+    the t2i shape (keys "<C> t2i"). With `full`, also the plain version,
+    the bound, SDPA with the same row mask over the cache, and SDPA after
+    the cache write it does not make (`kv[:, pos:pos + C] = kv_new`, K5's
+    whole work)."""
     from llamagen_tpu_torch.ops.chunk_attention import (
         chunk_decode_attention, chunk_decode_attention_ref)
-    b, h, s, pos = 16, 16, 640, 288
     timings = {}
-    for c in (5, 1, 8):
+    pad_l = [0] * b if pads is None else [pads[i % len(pads)]
+                                          for i in range(b)]
+    pad_t = None if pads is None else torch.tensor(pad_l, dtype=torch.int32,
+                                                   device=dev)
+    for c in cs:
+        key = c if not tag else f"{c}{tag}"
         states = [chunk_state(dev, b, h, h, s, c, torch.bfloat16, 100 + l)
                   for l in range(24)]
         ms = graph_ms([lambda st=st: chunk_decode_attention(
-            st[0], st[1], st[2], pos, h) for st in states])
+            st[0], st[1], st[2], pos, h, pad_t) for st in states])
         if not full:
-            timings[c] = dict(ms=ms)
+            timings[key] = dict(ms=ms)
             log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S "
                 f"{s}: kernel {ms:.4f} ms")
             del states
             continue
         plain = graph_ms([lambda st=st: chunk_decode_attention_ref(
-            st[0], st[1], st[2], pos, h) for st in states])
+            st[0], st[1], st[2], pos, h, pad_t) for st in states])
         q, kv_new, kv = states[0]
         row = kv.shape[2] * kv.element_size()
-        bnd_ms, by = bound(nbytes(q, kv_new, q) + b * (pos + c) * row
-                           + b * c * row, 4 * b * h * 64 * c * (pos + c))
+        bnd_ms, by = bound(
+            nbytes(q, kv_new, q) + sum((pos + c - pd) * row for pd in pad_l)
+            + b * c * row,
+            sum(4 * h * 64 * c * (pos + c - pd) for pd in pad_l))
         f = h * 64
         qs = [st[0].view(b, c, h, 64).transpose(1, 2) for st in states]
         ks = [st[2][..., :f].view(b, s, h, 64).transpose(1, 2)
@@ -873,8 +1008,10 @@ def time_chunk_attention(dev, full=True):
         vs = [st[2][..., f:].view(b, s, h, 64).transpose(1, 2)
               for st in states]
         cols = torch.arange(s, device=dev)
-        mask = (cols[None, :] <= pos + torch.arange(c, device=dev)[:, None]
-                ).view(1, 1, c, s)
+        mask = ((cols[None, None, :]
+                 <= pos + torch.arange(c, device=dev)[None, :, None])
+                & (cols[None, None, :] >= torch.tensor(
+                    pad_l, device=dev)[:, None, None])).view(b, 1, c, s)
         lib = library_time("K5 library (SDPA)", lambda: graph_ms(
             [lambda i=i: F.scaled_dot_product_attention(
                 qs[i], ks[i], vs[i], attn_mask=mask)
@@ -888,9 +1025,10 @@ def time_chunk_attention(dev, full=True):
                                  lambda: graph_ms(
                                      [lambda i=i: write_then_sdpa(i)
                                       for i in range(len(states))]))
-        timings[c] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
-                          library=lib, library_write=lib_write)
-        log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S {s}: "
+        timings[key] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
+                            library=lib, library_write=lib_write)
+        log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S {s}"
+            f"{'' if pads is None else f', prefix_pad {pads} in turn'}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} "
             f"ms ({by}), SDPA with the row mask over the cache "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, the cache write "
@@ -949,18 +1087,19 @@ def run_w4_path(dev):
             "img_s": BATCH / secs}
 
 
-def run_speculative(dev):
-    """Self-speculation at GPT-L 384: the bf16 target, a grouped-W4 copy of
-    it as the draft, k = 4, batch 8 + CFG 4.0, sampled, 576 tokens, bf16
+def run_speculative(dev, n_layer=SPEC_LAYERS):
+    """Self-speculation at GPT-L 384 width, cut to `n_layer` layers (the
+    speculative CLI runs all 24): the bf16 target, a grouped-W4 copy of it
+    as the draft, k = 4, batch 8 + CFG 4.0, sampled, 576 tokens, bf16
     caches. Each round runs k + 1 draft steps (C = 1) and one verify
-    (C = 5), all on K5: counters 24 * (k + 2) * rounds (K5) and
-    5 * 24 * (k + 1) * rounds (K3, the draft's decode matmuls)."""
+    (C = 5), all on K5: counters n_layer * (k + 2) * rounds (K5) and
+    5 * n_layer * (k + 1) * rounds (K3, the draft's decode matmuls)."""
     import copy
     from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
     from llamagen_tpu_torch.ops.speculative import generate_speculative
     from llamagen_tpu_torch.ops.w4_matmul import (quantize_gpt_params_w4k,
                                                   w4_matmul)
-    target = gpt_model(dev, seed=21)
+    target = gpt_model(dev, seed=21, n_layer=n_layer)
     draft = quantize_gpt_params_w4k(copy.deepcopy(target))
     labels = torch.arange(BATCH, device=dev) * 100 % 1000
     kw = dict(k=SPEC_K, cfg_scale=SPEC_CFG, compute_dtype=torch.bfloat16)
@@ -978,8 +1117,8 @@ def run_speculative(dev):
     torch.cuda.synchronize()
     secs = time.time() - t0
     k5, k3 = chunk_decode_attention.launches, w4_matmul.launches
-    n_layer = target.cfg.n_layer
-    log(f"speculative path (GPT-L 384 bf16 target, W4 g128 self-draft, k "
+    log(f"speculative path (GPT-L 384 width, {n_layer} layers, bf16 target, "
+        f"W4 g128 self-draft, k "
         f"{SPEC_K}, batch {BATCH} + CFG {SPEC_CFG}, sampled): {TOKENS} "
         f"tokens in {rounds} rounds = {TOKENS / rounds:.3f} tokens/round "
         f"({(TOKENS - 1) / rounds:.3f} after the prefill token), "
@@ -1229,6 +1368,417 @@ def run_app(dev):
     finally:
         proc.kill()
         proc.wait(timeout=60)
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-22: text-to-image (T5, sampling, the engine, greedy checks, CLI)
+# ---------------------------------------------------------------------------
+
+
+def t2i_model(dev, image_size, seed=0, dtype=torch.bfloat16, n_layer=None):
+    """GPT-XL t2i (120 caption tokens, caption_dim 2048) at `image_size`,
+    random seeded weights with a random head; `n_layer` cuts the depth."""
+    from llamagen_tpu_torch.config import gpt_config, replace
+    from llamagen_tpu_torch.models import gpt
+    cfg = gpt_config("GPT-XL", block_size=(image_size // 16) ** 2,
+                     cls_token_num=T2I_T, model_type="t2i",
+                     caption_dim=T2I_CAPTION)
+    if n_layer is not None:
+        cfg = replace(cfg, n_layer=n_layer)
+    model = gpt.init_weights(
+        gpt.Transformer(cfg, device=dev, dtype=dtype), seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():  # the reference init zeroes the head
+        model.output.weight.normal_(0.0, 0.02, generator=g)
+    return model.eval()
+
+
+def t2i_captions(dev, pads, seed, dtype=torch.bfloat16):
+    """Random caption features [B, 120, 2048], left-padded (zero rows below
+    each pad, as `left_pad_embeddings` leaves them), and masks [B, 120]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    caps = torch.randn(len(pads), T2I_T, T2I_CAPTION, generator=g,
+                       device=dev)
+    masks = torch.arange(T2I_T, device=dev)[None, :] \
+        >= torch.tensor(pads, device=dev)[:, None]
+    return (caps * masks[..., None]).to(dtype), masks
+
+
+def run_t5_encoder(dev):
+    """The port's T5 encoder at flan-t5-xl's widths (d_model 2048, 24
+    layers, 32 heads x 64, d_ff 5120, gated-gelu, 32 buckets, vocab 32128),
+    random weights at T5's init scales: 4 captions of 120 random ids with
+    right-padded masks of 1, 7, 60 and 120 tokens, bf16 against the same
+    weights in f32 on the card. Bounds (bf16 rounds every matmul input and
+    the residual stream through 24 layers): relative Frobenius error <=
+    2^-5, max |error| <= 2^-3 of the largest |output|. Prints the bf16
+    encode time."""
+    from llamagen_tpu_torch.text import t5
+    cfg = t5.T5EncoderConfig()
+    ref_model = t5.init_weights(t5.T5Encoder(cfg, device=dev,
+                                             dtype=torch.float32)).eval()
+    model = t5.T5Encoder(cfg, device=dev, dtype=torch.bfloat16).eval()
+    model.load_state_dict(ref_model.state_dict())
+    g = torch.Generator(device=dev).manual_seed(81)
+    ids = torch.randint(0, cfg.vocab_size, (4, T2I_T), generator=g,
+                        device=dev)
+    mask = (torch.arange(T2I_T, device=dev)[None, :] < torch.tensor(
+        [1, 7, 60, T2I_T], device=dev)[:, None]).long()
+    ref = ref_model(ids, mask)
+    out = model(ids, mask)
+    torch.cuda.synchronize()
+    del ref_model
+    rel_fro = ((out.float() - ref).norm() / ref.norm()).item()
+    rel_max = max_err(out, ref) / ref.abs().max().item()
+    ms = cuda_ms(lambda: model(ids, mask), reps=3, calls=5)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"T5 encoder (flan-t5-xl widths, {n_params / 1e9:.3f}B params, "
+        f"random weights), 4 captions x {T2I_T} ids, masks of 1/7/60/120: "
+        f"bf16 vs f32 relative Frobenius error {rel_fro:.4g} (bound "
+        f"{2 ** -5:.4g}), max error {rel_max:.4g} of the largest output "
+        f"(bound {2 ** -3:.4g}); bf16 encode {ms:.3f} ms")
+    if not (out.shape == (4, T2I_T, cfg.d_model)
+            and torch.isfinite(out.float()).all()
+            and rel_fro <= 2 ** -5 and rel_max <= 2 ** -3):
+        raise AssertionError("the bf16 T5 encoder disagrees with f32")
+    return {"ms": ms, "rel_fro": rel_fro}
+
+
+def run_t2i_path(dev):
+    """`generate` for t2i at 512 px: GPT-XL, bf16 weights and cache, 4
+    captions left-padded by 0, 60, 100 and 119 + CFG 7.5, top-k 1000,
+    1,024 tokens, then the VQ-16 decoder to [4, 512, 512, 3]. K1 runs with
+    `prefix_pad` in every layer of every step: exactly 36 * 1023 launches,
+    K2 none (bf16 weights)."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.models import vq
+    from llamagen_tpu_torch.ops.attention import decode_attention
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.ops.quant_matmul import int8_matmul
+    model = t2i_model(dev, 512)
+    caps, masks = t2i_captions(dev, T2I_PADS, seed=90)
+    tokens_n = model.cfg.block_size
+    kw = dict(emb_masks=masks, cfg_scale=T2I_CFG, top_k=T2I_TOP_K,
+              compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    generate(model, caps, max_new_tokens=40, generator=gen, **kw)  # warm
+    torch.cuda.synchronize()
+
+    decode_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.time()
+    tokens = generate(model, caps, max_new_tokens=tokens_n, generator=gen,
+                      **kw)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k1, k2 = decode_attention.launches, int8_matmul.launches
+    n_layer = model.cfg.n_layer
+    log(f"t2i sampling path (GPT-XL 512, bf16 weights + cache, "
+        f"{T2I_BATCH} captions with pads {T2I_PADS} + CFG {T2I_CFG}, top-k "
+        f"{T2I_TOP_K}): {tokens_n} tokens in {secs:.3f} s = "
+        f"{T2I_BATCH / secs:.4f} img/s, {1e3 * secs / tokens_n:.3f} "
+        f"ms/token step; launches decode_attention {k1}, int8_matmul {k2}")
+    if k1 != n_layer * (tokens_n - 1) or k2 != 0:
+        raise AssertionError(f"launch counts {k1}, {k2}: expected "
+                             f"{n_layer * (tokens_n - 1)}, 0")
+    if tokens.shape != (T2I_BATCH, tokens_n) or tokens.min() < 0 \
+            or tokens.max() >= model.cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(tokens.shape)}")
+    del model
+    vq_model = vq.init_weights(vq.VQModel(vq_config("VQ-16"), device=dev,
+                                          dtype=torch.bfloat16))
+    t0 = time.time()
+    imgs = vq_model.decode_code(tokens.reshape(T2I_BATCH, 32, 32))
+    torch.cuda.synchronize()
+    log(f"t2i VQ-16 decode_code -> {tuple(imgs.shape)} in "
+        f"{time.time() - t0:.3f} s")
+    if imgs.shape != (T2I_BATCH, 512, 512, 3) \
+            or not torch.isfinite(imgs).all():
+        raise AssertionError("t2i images are not finite [4, 512, 512, 3]")
+    return {"decode_attention": k1, "img_s": T2I_BATCH / secs}
+
+
+def t2i_engine_requests(n=T2I_ENGINE_REQUESTS):
+    """`tests/bench_t2i_engine.py`'s requests: n random captions, each
+    left-padded by a count in [0, 60) from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    caps = rng.randn(n, T2I_T, T2I_CAPTION).astype(np.float32)
+    masks = np.ones((n, T2I_T), bool)
+    for i in range(n):
+        pad = rng.randint(0, 60)
+        masks[i, :pad] = False
+        caps[i, :pad] = 0
+    return caps, masks
+
+
+def run_t2i_engine(dev):
+    """The t2i serving engine at `tests/bench_t2i_engine.py`'s point:
+    GPT-XL 256 px, W8A16 layers and head + int8 KV, 8 pairs, chunk 64, CFG
+    7.5, 24 caption requests (three waves of 8 admitted in one prefill
+    each). The first admission and chunk run under
+    `torch.cuda.set_sync_debug_mode("error")`. The counters are read
+    around each admission prefill and each chunk of steps: exactly 0 (K1)
+    and 181 (K2: five matmuls a layer and the head) per admission, 36 (K1)
+    and 181 (K2) per step, steps counted by the host; 4 results through
+    the VQ-16 decoder."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.models import vq
+    from llamagen_tpu_torch.ops.attention import decode_attention
+    from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                     quantize_gpt_params)
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    model = quantize_gpt_params(t2i_model(dev, 256, seed=91),
+                                quantize_head=True)
+    caps, masks = t2i_engine_requests()
+    tokens_n = model.cfg.block_size
+    kw = dict(num_pairs=T2I_ENGINE_PAIRS, chunk=T2I_ENGINE_CHUNK,
+              compute_dtype=torch.bfloat16, cache_dtype=torch.int8,
+              sampling_params=SamplingParams(cfg_scale=T2I_CFG))
+    ServeEngine(model, max_new_tokens=16, **kw).generate_t2i(
+        caps[:T2I_ENGINE_PAIRS], masks[:T2I_ENGINE_PAIRS])  # warm-up
+    torch.cuda.synchronize()
+
+    eng = ServeEngine(model, max_new_tokens=tokens_n, **kw)
+    # each admission prefill and each chunk of steps read the counters
+    # before and after it: (K1, K2) launches per admission and per chunk
+    per_admission, per_chunk = [], []
+
+    def counted(fn, into):
+        def call(*args):
+            k1_0, k2_0 = decode_attention.launches, int8_matmul.launches
+            out = fn(*args)
+            into.append((args, decode_attention.launches - k1_0,
+                         int8_matmul.launches - k2_0))
+            return out
+        return call
+
+    eng._admit_fn = counted(eng._admit_fn, per_admission)
+    eng.step_fn = counted(eng.step_fn, per_chunk)
+    decode_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.time()
+    reqs = [eng.submit_caption(c, m) for c, m in zip(caps, masks)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._admit_and_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng._harvest()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k1, k2 = decode_attention.launches, int8_matmul.launches
+    steps, admissions = eng.steps_run, eng.admissions
+    st = eng.stats()
+    n_layer = model.cfg.n_layer
+    per = 5 * n_layer + 1
+    # step_fn(state, *admission, n_steps, filters_off)
+    chunk_steps = [args[-2] for args, _, _ in per_chunk]
+    k1_adm = sum(a for _, a, _ in per_admission)
+    k2_adm = sum(b for _, _, b in per_admission)
+    k1_steps = sum(a for _, a, _ in per_chunk)
+    k2_steps = sum(b for _, _, b in per_chunk)
+    log(f"t2i serving engine (GPT-XL 256, W8A16 layers and head + int8 KV, "
+        f"{T2I_ENGINE_PAIRS} pairs, chunk {T2I_ENGINE_CHUNK}, "
+        f"{T2I_ENGINE_REQUESTS} captions, CFG {T2I_CFG}): {secs:.3f} s = "
+        f"{T2I_ENGINE_REQUESTS / secs:.4f} img/s, {steps} steps = "
+        f"{1e3 * secs / steps:.3f} ms/step (admissions included), "
+        f"{admissions} admissions; TTFT p50 {st['ttft_p50_s']:.4f} s p95 "
+        f"{st['ttft_p95_s']:.4f} s, TPOT p50 {st['tpot_p50_s']:.5f} s p95 "
+        f"{st['tpot_p95_s']:.5f} s, e2e p50 {st['e2e_latency_p50_s']:.3f} s "
+        f"p95 {st['e2e_latency_p95_s']:.3f} s; launches decode_attention "
+        f"{k1}, int8_matmul {k2}; first admission and chunk under sync "
+        f"debug mode 'error': no device-to-host read")
+    log(f"t2i serving engine counters: {len(per_admission)} admission "
+        f"prefills, (decode_attention, int8_matmul) launches each "
+        f"{[(a, b) for _, a, b in per_admission]}; {len(per_chunk)} chunks "
+        f"of {sum(chunk_steps)} steps, int8_matmul {k2_steps} = "
+        f"{k2_steps / max(sum(chunk_steps), 1):g} a step, decode_attention "
+        f"{k1_steps} = {k1_steps / max(sum(chunk_steps), 1):g} a step")
+    log(f"t2i serving engine stats: {json.dumps(st)}")
+    bad_adm = [(a, b) for _, a, b in per_admission if (a, b) != (0, per)]
+    bad_chunk = [(n, a, b) for n, (_, a, b) in zip(chunk_steps, per_chunk)
+                 if (a, b) != (n_layer * n, per * n)]
+    if bad_adm or bad_chunk or len(per_admission) != admissions \
+            or sum(chunk_steps) != steps or k1 != k1_adm + k1_steps \
+            or k2 != k2_adm + k2_steps:
+        raise AssertionError(
+            f"launch counts: admissions (K1, K2) {bad_adm} (expected (0, "
+            f"{per}) each), chunks (steps, K1, K2) {bad_chunk[:5]} (expected "
+            f"({n_layer}, {per}) a step), totals {k1}, {k2}")
+    tokens = torch.tensor(np.stack([r.result for r in reqs]))
+    waves = -(-T2I_ENGINE_REQUESTS // T2I_ENGINE_PAIRS)
+    if tokens.shape != (T2I_ENGINE_REQUESTS, tokens_n) or tokens.min() < 0 \
+            or tokens.max() >= model.cfg.vocab_size \
+            or st["completed"] != T2I_ENGINE_REQUESTS \
+            or steps != waves * (tokens_n - 1) or admissions != waves:
+        raise AssertionError(f"bad engine results {tuple(tokens.shape)}, "
+                             f"completed {st['completed']}, steps {steps}, "
+                             f"admissions {admissions}")
+    del model, eng
+    vq_model = vq.init_weights(vq.VQModel(vq_config("VQ-16"), device=dev,
+                                          dtype=torch.bfloat16))
+    imgs = vq_model.decode_code(tokens[:4].to(dev).reshape(4, 16, 16))
+    torch.cuda.synchronize()
+    if imgs.shape != (4, 256, 256, 3) or not torch.isfinite(imgs).all():
+        raise AssertionError("t2i engine images are not finite")
+    log(f"t2i serving engine VQ-16 decode of 4 results -> "
+        f"{tuple(imgs.shape)}, finite")
+    return {"decode_attention": k1, "int8_matmul": k2,
+            "int8_matmul_steps": k2_steps,
+            "int8_matmul_admissions": k2_adm, "steps": steps,
+            "admissions": admissions,
+            "img_s": T2I_ENGINE_REQUESTS / secs}
+
+
+def run_t2i_engine_greedy_f32(dev):
+    """Greedy t2i engine tokens equal `generate(emb_masks=...)`'s: GPT-XL
+    width cut to 2 layers, f32 compute, W8A16 + int8 KV (K1's f32 entry,
+    K2's f32 x), 2 pairs, 4 captions with pads 0, 60, 100 and 119 (the
+    last two reusing slots), 48 tokens (positions 120-167: the flushes at
+    127 and 159), CFG 7.5, temperature 0."""
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    model = quantize_gpt_params(t2i_model(dev, 256, seed=92,
+                                          dtype=torch.float32, n_layer=2))
+    caps, masks = t2i_captions(dev, T2I_PADS, seed=93, dtype=torch.float32)
+    eng = ServeEngine(model, num_pairs=2, max_new_tokens=48, chunk=16,
+                      compute_dtype=torch.float32, cache_dtype=torch.int8,
+                      sampling_params=SamplingParams(cfg_scale=T2I_CFG,
+                                                     temperature=0.0))
+    reqs = [eng.submit_caption(caps[0], masks[0])]
+    eng._admit_and_step()  # the second slot starts a chunk later
+    reqs += [eng.submit_caption(c, m) for c, m in zip(caps[1:], masks[1:])]
+    eng.run_until_idle()
+    got = torch.tensor(np.stack([r.result for r in reqs]))
+    ref = generate(model, caps, emb_masks=masks, max_new_tokens=48,
+                   cfg_scale=T2I_CFG, sample_logits=False,
+                   compute_dtype=torch.float32,
+                   cache_dtype=torch.int8).cpu()
+    same = torch.equal(got, ref)
+    log(f"greedy f32 t2i engine (GPT-XL width, 2 layers, W8A16 + int8 KV, "
+        f"2 pairs, 4 captions, pads {T2I_PADS}, 48 tokens) == generate: "
+        f"{same} ({len(torch.unique(ref))} distinct tokens, "
+        f"{eng.admissions} admissions)")
+    if not same:
+        bad = (got != ref).nonzero()[:5].tolist()
+        raise AssertionError(f"greedy t2i engine tokens differ at {bad}")
+
+
+def run_t2i_speculative(dev):
+    """The t2i speculative path at 512 px: GPT-XL at full depth, bf16
+    weights and caches, a grouped-W4 copy of it drafting (self-speculation),
+    k 4, 4 captions left-padded by 0, 60, 100 and 119 + CFG 7.5, top-k
+    1000, sampled, 1,024 tokens. Each round runs k + 1 draft steps (C 1)
+    and one verify (C 5), every one on K5 with `prefix_pad`: counters
+    exactly 36 * (k + 2) * rounds (K5) and 5 * 36 * (k + 1) * rounds (K3,
+    the draft's decode matmuls); K1 none."""
+    import copy
+    from llamagen_tpu_torch.ops.attention import decode_attention
+    from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.speculative import generate_speculative
+    from llamagen_tpu_torch.ops.w4_matmul import (quantize_gpt_params_w4k,
+                                                  w4_matmul)
+    target = t2i_model(dev, 512, seed=96)
+    draft = quantize_gpt_params_w4k(copy.deepcopy(target))
+    caps, masks = t2i_captions(dev, T2I_PADS, seed=97)
+    tokens_n = target.cfg.block_size
+    kw = dict(k=SPEC_K, emb_masks=masks, cfg_scale=T2I_CFG, top_k=T2I_TOP_K,
+              compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    generate_speculative(target, draft, caps, max_new_tokens=16,
+                         generator=gen, **kw)  # warm
+    torch.cuda.synchronize()
+
+    chunk_decode_attention.launches = 0
+    w4_matmul.launches = 0
+    decode_attention.launches = 0
+    t0 = time.time()
+    tokens, rounds = generate_speculative(target, draft, caps,
+                                          max_new_tokens=tokens_n,
+                                          generator=gen, **kw)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k5, k3 = chunk_decode_attention.launches, w4_matmul.launches
+    k1 = decode_attention.launches
+    n_layer = target.cfg.n_layer
+    log(f"t2i speculative path (GPT-XL 512 bf16 target, W4 g128 self-draft, "
+        f"k {SPEC_K}, {T2I_BATCH} captions with pads {T2I_PADS} + CFG "
+        f"{T2I_CFG}, top-k {T2I_TOP_K}, sampled): {tokens_n} tokens in "
+        f"{rounds} rounds = {tokens_n / rounds:.3f} tokens/round, "
+        f"{secs:.3f} s = {T2I_BATCH / secs:.4f} img/s, "
+        f"{1e3 * secs / rounds:.3f} ms/round; launches "
+        f"chunk_decode_attention {k5}, w4_matmul {k3}, decode_attention {k1}")
+    want5 = n_layer * (SPEC_K + 2) * rounds
+    want3 = 5 * n_layer * (SPEC_K + 1) * rounds
+    if k5 != want5 or k3 != want3 or k1 != 0:
+        raise AssertionError(f"launch counts {k5}, {k3}, {k1}: expected "
+                             f"{want5}, {want3}, 0")
+    if tokens.shape != (T2I_BATCH, tokens_n) or tokens.min() < 0 \
+            or tokens.max() >= target.cfg.vocab_size \
+            or not -(-(tokens_n - 1) // (SPEC_K + 1)) <= rounds \
+            <= tokens_n - 1:
+        raise AssertionError(f"bad tokens {tuple(tokens.shape)} or rounds "
+                             f"{rounds}")
+    return {"chunk_decode_attention": k5, "w4_matmul": k3,
+            "rounds": rounds, "img_s": T2I_BATCH / secs}
+
+
+def run_t2i_spec_greedy_f32(dev):
+    """Greedy t2i speculative decoding commits `generate`'s tokens: GPT-XL
+    width cut to 2 layers, f32 (f32 caches), a W4 copy drafting, k 4, 4
+    captions with pads 0, 60, 100 and 119 + CFG 7.5, 48 tokens; K5 runs
+    every draft and verify step at 20 heads with `prefix_pad`: exactly
+    2 * (k + 2) * rounds launches."""
+    import copy
+    from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.ops.speculative import generate_speculative
+    from llamagen_tpu_torch.ops.w4_matmul import quantize_gpt_params_w4k
+    target = t2i_model(dev, 256, seed=94, dtype=torch.float32, n_layer=2)
+    draft = quantize_gpt_params_w4k(copy.deepcopy(target))
+    caps, masks = t2i_captions(dev, T2I_PADS, seed=95, dtype=torch.float32)
+    kw = dict(max_new_tokens=48, emb_masks=masks, cfg_scale=T2I_CFG,
+              sample_logits=False, compute_dtype=torch.float32)
+    ref = generate(target, caps, cache_dtype=torch.float32, **kw)
+    chunk_decode_attention.launches = 0
+    got, rounds = generate_speculative(target, draft, caps, k=SPEC_K, **kw)
+    k5 = chunk_decode_attention.launches
+    same = torch.equal(got, ref)
+    log(f"greedy f32 t2i speculative (GPT-XL width, 2 layers, W4 "
+        f"self-draft, k {SPEC_K}, pads {T2I_PADS}, 48 tokens) == generate: "
+        f"{same} ({rounds} rounds, {len(torch.unique(ref))} distinct "
+        f"tokens); launches chunk_decode_attention {k5}")
+    if not same:
+        bad = (got != ref).nonzero()[:5].tolist()
+        raise AssertionError(f"greedy t2i speculative tokens differ at "
+                             f"{bad}")
+    if k5 != 2 * (SPEC_K + 2) * rounds:
+        raise AssertionError(f"K5 launches {k5}, expected "
+                             f"{2 * (SPEC_K + 2) * rounds}")
+    return {"chunk_decode_attention": k5, "rounds": rounds}
+
+
+def run_t2i_cli(dev):
+    """`python -m llamagen_tpu_torch.cli.sample_t2i` at its defaults (GPT-XL
+    256 px, bf16, the 4 demo prompts, CFG 7.5, top-k 1000, random weights;
+    no --t5-path: random caption features) on the card."""
+    from llamagen_tpu_torch.cli import sample_t2i
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "grid.png")
+        t0 = time.time()
+        res = sample_t2i.main(["--device", "cuda", "--out", out])
+        secs = time.time() - t0
+        png_ok = os.path.getsize(out) > 0
+    n = res.images.shape[0]
+    log(f"CLI sample_t2i (defaults: GPT-XL 256, bf16, {n} prompts + CFG "
+        f"7.5, top-k 1000): sampling {res.gen_seconds:.3f} s = "
+        f"{n / res.gen_seconds:.4f} img/s; whole CLI {secs:.3f} s")
+    if res.images.shape != (4, 256, 256, 3) \
+            or not np.isfinite(res.images).all() or not png_ok \
+            or res.tokens.min() < 0 or res.tokens.max() >= 16384:
+        raise AssertionError("t2i CLI output is not 4 finite 256 px images")
 
 
 # ---------------------------------------------------------------------------
@@ -1579,6 +2129,13 @@ def main():
     phase("serving engine", run_engine)
     phase("greedy f32 engine == generate", run_engine_greedy_f32)
     phase("serving app", run_app)
+    phase("T5 encoder, flan-t5-xl widths", run_t5_encoder)
+    t2i_launches = phase("t2i sampling path", run_t2i_path)
+    t2i_engine = phase("t2i serving engine", run_t2i_engine)
+    phase("greedy f32 t2i engine == generate", run_t2i_engine_greedy_f32)
+    t2i_spec = phase("t2i speculative path", run_t2i_speculative)
+    phase("greedy f32 t2i speculative == generate", run_t2i_spec_greedy_f32)
+    phase("t2i sampling CLI", run_t2i_cli)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):
@@ -1617,6 +2174,28 @@ def main():
         entry("chunk_decode_attention", "chunk_attention.cu",
               "llamagen_tpu/ops/chunk_attention.py:315",
               spec_launches["chunk_decode_attention"], k5_err, k5_t[5]),
+        # the t2i slice's shapes: GPT-XL, 20 heads, prefix_pad
+        entry("decode_attention [t2i 512 px: bf16 cache, B 8, 20 heads, "
+              "prefix_pad]", "decode_attention.cu",
+              "llamagen_tpu/ops/attention.py:569",
+              t2i_launches["decode_attention"], k1_err, k1_t["bf16 B8 t2i"]),
+        entry("decode_attention [t2i engine: int8 cache, B 16, 20 heads, "
+              "prefix_pad]", "decode_attention.cu",
+              "llamagen_tpu/ops/attention.py:569",
+              t2i_engine["decode_attention"], k1_err, k1_t["int8 t2i"]),
+        entry("int8_matmul [t2i engine step: GPT-XL wqkv, B 16]",
+              "int8_matmul.cu", "llamagen_tpu/ops/quant_matmul.py:62",
+              t2i_engine["int8_matmul_steps"], k2_err,
+              k2_t["XL wqkv t2i"]),
+        entry("int8_matmul [t2i admission: GPT-XL wqkv, B 1920]",
+              "int8_matmul.cu", "llamagen_tpu/ops/quant_matmul.py:62",
+              t2i_engine["int8_matmul_admissions"], k2_err,
+              k2_t[f"XL wqkv B{T2I_ADMIT_ROWS} t2i"]),
+        entry("chunk_decode_attention [t2i 512 px speculative: B 8, 20 "
+              "heads, prefix_pad, C 5]",
+              "chunk_attention.cu",
+              "llamagen_tpu/ops/chunk_attention.py:315",
+              t2i_spec["chunk_decode_attention"], k5_err, k5_t["5 t2i"]),
     ]}
     print(smi)
     print(json.dumps(record))

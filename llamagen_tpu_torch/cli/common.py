@@ -61,12 +61,17 @@ def _shape_quantized_linears(model: gpt_lib.Transformer,
 
 def load_gpt(gpt_ckpt: Optional[str], gpt_model: str, image_size: int,
              downsample_size: int, dtype: torch.dtype,
-             device: torch.device) -> gpt_lib.Transformer:
-    """c2i GPT from a `.pt` state dict (bf16/f32, or W8A16 / W4 quantised),
-    or seeded random weights (the reference init, zero head) when
-    `gpt_ckpt` is None."""
+             device: torch.device, model_type: str = "c2i",
+             cls_token_num: Optional[int] = None) -> gpt_lib.Transformer:
+    """c2i or t2i GPT from a `.pt` state dict (bf16/f32, or W8A16 / W4
+    quantised), or seeded random weights (the reference init, zero head)
+    when `gpt_ckpt` is None. cls_token_num defaults to 1 (c2i) or 120
+    (t2i), as in JAX `cli/common.py`."""
     latent = image_size // downsample_size
-    cfg = gpt_config(gpt_model, block_size=latent * latent, cls_token_num=1)
+    if cls_token_num is None:
+        cls_token_num = 1 if model_type == "c2i" else 120
+    cfg = gpt_config(gpt_model, block_size=latent * latent,
+                     cls_token_num=cls_token_num, model_type=model_type)
     model = gpt_lib.Transformer(cfg, device=device, dtype=dtype)
     if gpt_ckpt is None:
         gpt_lib.init_weights(model, seed=0)

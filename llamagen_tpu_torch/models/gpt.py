@@ -3,7 +3,9 @@ inference (prefill, decode) and the training forward.
 
 Counterpart of `llamagen_tpu/models/gpt.py`. The module tree uses the
 upstream LlamaGen state-dict keys (`tok_embeddings.weight`,
-`cls_embedding.embedding_table.weight`, `layers.{i}.attention.wqkv.weight`,
+`cls_embedding.embedding_table.weight` for c2i, `cls_embedding.cap_proj.
+fc{1,2}.weight` and `cls_embedding.uncond_embedding` for t2i,
+`layers.{i}.attention.wqkv.weight`,
 `layers.{i}.feed_forward.w1.weight`, `norm.weight`, `output.weight`, ...), so
 a released `.pt` loads with `load_state_dict`.
 
@@ -185,17 +187,35 @@ class LabelEmbedder(nn.Module):
         self.embedding_table = nn.Embedding(rows, cfg.dim, **kw)
 
 
+class CaptionEmbedder(nn.Module):
+    """t2i conditioning (upstream `CaptionEmbedder`): an MLP over T5
+    features, `cap_proj.fc1 [dim, caption_dim]` and `cap_proj.fc2
+    [dim, dim]` (no biases), and the learned null caption
+    `uncond_embedding [cls_token_num, caption_dim]` for CFG."""
+
+    def __init__(self, cfg: GPTConfig, **kw):
+        super().__init__()
+        self.cap_proj = nn.Module()
+        self.cap_proj.fc1 = Linear(cfg.caption_dim, cfg.dim, **kw)
+        self.cap_proj.fc2 = Linear(cfg.dim, cfg.dim, **kw)
+        self.uncond_embedding = nn.Parameter(torch.empty(
+            cfg.cls_token_num, cfg.caption_dim, **kw))
+
+
 class Transformer(nn.Module):
-    """c2i GPT (inference). `cfg` is the JAX package's `GPTConfig`."""
+    """GPT (inference and the training forward) for c2i (class labels) or
+    t2i (caption features). `cfg` is the port's `GPTConfig`."""
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.model_type != "c2i":
-            raise NotImplementedError("t2i conditioning is not ported yet")
+        if cfg.model_type not in ("c2i", "t2i"):
+            raise ValueError(f"model_type {cfg.model_type!r}")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.dim, **kw)
-        self.cls_embedding = LabelEmbedder(cfg, **kw)
+        self.cls_embedding = (LabelEmbedder(cfg, **kw)
+                              if cfg.model_type == "c2i"
+                              else CaptionEmbedder(cfg, **kw))
         self.layers = nn.ModuleList(TransformerBlock(cfg, **kw)
                                     for _ in range(cfg.n_layer))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
@@ -206,27 +226,40 @@ class Transformer(nn.Module):
                              torch.tensor(freqs, device=device),
                              persistent=False)
 
-    def embed_condition(self, labels: torch.Tensor,
+    def embed_condition(self, cond: torch.Tensor,
                         generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
-        """Class labels [B] -> condition embeddings [B, 1, dim]. With a
-        `generator` (training) each label is replaced by the null class
-        `num_classes` with probability `class_dropout_prob` (CFG dropout,
-        JAX `embed_condition`)."""
+        """Class labels [B] (c2i) -> [B, 1, dim], or caption features
+        [B, T, caption_dim] (t2i) -> GELU-tanh(cap fc1) fc2, the first
+        `cls_token_num` rows [B, cls_token_num, dim] (JAX
+        `embed_condition`). With a `generator` (training) each label is
+        replaced by the null class `num_classes`, each whole caption by
+        `uncond_embedding`, with probability `class_dropout_prob` (CFG
+        dropout)."""
         p = self.cfg.class_dropout_prob
+        drop = None
         if generator is not None and p > 0:
-            drop = torch.rand(labels.shape, generator=generator,
-                              device=labels.device) < p
-            labels = torch.where(drop, self.cfg.num_classes, labels)
-        return F.embedding(labels, self.cls_embedding.embedding_table.weight
-                           )[:, None, :]
+            drop = torch.rand(cond.shape[:1], generator=generator,
+                              device=cond.device) < p
+        if self.cfg.model_type == "c2i":
+            if drop is not None:
+                cond = torch.where(drop, self.cfg.num_classes, cond)
+            return F.embedding(
+                cond, self.cls_embedding.embedding_table.weight)[:, None, :]
+        ce = self.cls_embedding
+        if drop is not None:
+            cond = torch.where(drop[:, None, None],
+                               ce.uncond_embedding.to(cond.dtype), cond)
+        h = F.gelu(ce.cap_proj.fc1(cond), approximate="tanh")
+        return ce.cap_proj.fc2(h)[:, :self.cfg.cls_token_num]
 
 
 @torch.no_grad()
 def init_weights(model: Transformer, seed: int = 0) -> Transformer:
     """The reference init (gpt.py:790-826): normal(0.02) matmul and
-    embedding weights, unit norms, and a ZEROED output head (every logit 0:
-    give the head weights before greedy decoding means anything)."""
+    embedding weights, unit norms, a t2i null caption of normal(1) /
+    sqrt(caption_dim), and a ZEROED output head (every logit 0: give the
+    head weights before greedy decoding means anything)."""
     dev = model.freqs_cis.device
     g = torch.Generator(device=dev).manual_seed(seed)
     std = model.cfg.initializer_range
@@ -235,6 +268,8 @@ def init_weights(model: Transformer, seed: int = 0) -> Transformer:
             p.fill_(1.0)
         elif name == "output.weight":
             p.zero_()
+        elif name == "cls_embedding.uncond_embedding":
+            p.normal_(0.0, model.cfg.caption_dim ** -0.5, generator=g)
         else:
             p.normal_(0.0, std, generator=g)
     return model
@@ -317,10 +352,12 @@ Attend = Callable[[int, torch.Tensor], torch.Tensor]
 
 
 def decode_stack(model: Transformer, h: torch.Tensor, attend: Attend,
-                 flatten: bool = True) -> torch.Tensor:
+                 flatten: bool = True, last_only: bool = False
+                 ) -> torch.Tensor:
     """The layer loop + final norm + output head. h [..., D];
     attend(l, qkv) -> [..., F] owns rope, the cache update and attention.
-    Returns f32 logits [..., V].
+    Returns f32 logits [..., V], or with `last_only` (prefill) the head of
+    the last position only, [B, V] for h [B, T, D] (JAX `prefill`).
 
     flatten: run every matmul on x flattened to rank 2, as JAX's
     `decode_stack` does (gpt.py:598-602), so W4 weights take the W4 kernel
@@ -342,6 +379,8 @@ def decode_stack(model: Transformer, h: torch.Tensor, attend: Attend,
         ff = layer.feed_forward
         x = layer.ffn_norm(h)
         h = h + mm(ff.w2, F.silu(mm(ff.w1, x)) * mm(ff.w3, x)).to(h.dtype)
+    if last_only:  # rank 3, as JAX's `_logits(h[:, -1:])`
+        return model.output(model.norm(h[:, -1:])).float()[:, 0]
     return mm(model.output, model.norm(h)).float()
 
 
@@ -375,10 +414,16 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @torch.no_grad()
 def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
-            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+            compute_dtype: torch.dtype = torch.bfloat16,
+            prefix_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the condition tokens; writes cache rows [0, T) in place and
     returns the logits at the last position [B, V] (f32). The cache must be
-    bf16/f32 (int8 runs prefill into an exact cache, then quantises)."""
+    bf16/f32 (int8 runs prefill into an exact cache, then quantises).
+
+    cond: [B] labels (c2i) or [B, T, caption_dim] caption features (t2i).
+    prefix_mask: optional [B, T] bool caption validity (t2i left padding):
+    query i attends to key j <= i where j is valid or j == i (JAX
+    `causal & (allow | eye)`), so a pad row attends to itself only."""
     if cache.quantized:
         raise ValueError("prefill into an exact cache, then quantize_cache")
     cfg = model.cfg
@@ -386,6 +431,9 @@ def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
     h = model.embed_condition(cond).to(compute_dtype)
     freqs = model.freqs_cis[:t]
     causal = torch.ones(t, t, dtype=torch.bool, device=h.device).tril()
+    if prefix_mask is not None:
+        eye = torch.eye(t, dtype=torch.bool, device=h.device)
+        causal = causal & (prefix_mask.bool()[:, None, None, :] | eye)
     f_kv = cfg.kv_heads * cfg.head_dim
 
     def attend(l, qkv):
@@ -400,7 +448,7 @@ def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
         vv = ckv[:, :t, f_kv:].reshape(b, t, cfg.kv_heads, cfg.head_dim)
         return _sdpa(q, kk.to(q.dtype), vv.to(q.dtype), causal)
 
-    return decode_stack(model, h, attend, flatten=False)[:, -1]
+    return decode_stack(model, h, attend, flatten=False, last_only=True)
 
 
 @torch.no_grad()
@@ -438,16 +486,18 @@ def decode_step_slots(model: Transformer, emb: torch.Tensor,
 @torch.no_grad()
 def decode_step(model: Transformer, token: torch.Tensor, pos: int,
                 cache: KVCache,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                prefix_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One token per row at position `pos` (`decode_step_slots` with the
-    token embeddings and one position for every row). Returns f32 logits
+    token embeddings and one position for every row); prefix_pad: optional
+    int32 [B] left-pad counts of t2i captions. Returns f32 logits
     [B, V]."""
     if not 0 <= pos < cache.kv[0].shape[1]:  # the kernel writes row pos
         raise ValueError(f"pos {pos} outside the cache")
     emb = model.tok_embeddings.weight[token]
     return decode_step_slots(model, emb,
                              batch_positions(pos, token.shape[0], emb.device),
-                             cache, compute_dtype)
+                             cache, compute_dtype, prefix_pad=prefix_pad)
 
 
 # ---------------------------------------------------------------------------

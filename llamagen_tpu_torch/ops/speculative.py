@@ -38,7 +38,7 @@ from llamagen_tpu_torch.config import find_multiple
 from llamagen_tpu_torch.models import gpt
 from llamagen_tpu_torch.ops import sampling
 from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
-from llamagen_tpu_torch.ops.generate import build_cfg_batch
+from llamagen_tpu_torch.ops.generate import build_cfg_batch, caption_masks
 
 
 def warped_probs(logits: torch.Tensor, temperature: float, top_k: int,
@@ -141,6 +141,7 @@ def spec_accept(proposals: torch.Tensor, q_probs: torch.Tensor,
 def generate_speculative(model: gpt.Transformer, draft: gpt.Transformer,
                          cond: torch.Tensor, *, max_new_tokens: int,
                          k: int = 4,
+                         emb_masks: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
                          cfg_scale: float = 1.0, temperature: float = 1.0,
                          top_k: int = 0, top_p: float = 1.0,
@@ -149,7 +150,8 @@ def generate_speculative(model: gpt.Transformer, draft: gpt.Transformer,
                          force_accept: Optional[int] = None
                          ) -> Tuple[torch.Tensor, int]:
     """Speculative sampling of `max_new_tokens` grid tokens for class
-    labels `cond [B]` (on the models' device).
+    labels `cond [B]` or caption features `cond [B, T, caption_dim]` with
+    optional left-pad masks `emb_masks [B, T]` (on the models' device).
 
     Drop-in for `ops.generate.generate` (same conditioning, CFG and warp
     semantics, minus penalties and cfg_interval): `model` is the target,
@@ -179,10 +181,11 @@ def generate_speculative(model: gpt.Transformer, draft: gpt.Transformer,
 
     tcache = gpt.init_cache(cfg, batch_cfg, max_seq, compute_dtype, dev)
     dcache = gpt.init_cache(dcfg, batch_cfg, max_seq, compute_dtype, dev)
+    prefix_mask, prefix_pad = caption_masks(emb_masks, t, use_cfg)
     tlogits = gpt.prefill(model, build_cfg_batch(model, cond, use_cfg),
-                          tcache, compute_dtype)
+                          tcache, compute_dtype, prefix_mask=prefix_mask)
     gpt.prefill(draft, build_cfg_batch(draft, cond, use_cfg), dcache,
-                compute_dtype)
+                compute_dtype, prefix_mask=prefix_mask)
     sample_kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                      sample_logits=sample_logits)
     if use_cfg:
@@ -212,7 +215,7 @@ def generate_speculative(model: gpt.Transformer, draft: gpt.Transformer,
         for j in range(k + 1):
             logits = verify_step_slots(draft, dbl(cur_d)[:, None],
                                        positions(p + j, 1), dcache,
-                                       compute_dtype)[:, 0]
+                                       compute_dtype, prefix_pad)[:, 0]
             if use_cfg:
                 logits = sampling.cfg_mix(logits, cfg_scale)
             qps.append(warped_probs(logits, temperature, top_k, top_p))
@@ -223,7 +226,7 @@ def generate_speculative(model: gpt.Transformer, draft: gpt.Transformer,
 
         toks = torch.cat([cur[:, None], props], dim=1)         # [B, C]
         vlogits = verify_step_slots(model, dbl(toks), positions(p, c),
-                                    tcache, compute_dtype)
+                                    tcache, compute_dtype, prefix_pad)
         if use_cfg:
             vlogits = sampling.cfg_mix(vlogits, cfg_scale)
         pps = warped_probs(vlogits, temperature, top_k, top_p)  # [B, C, V]

@@ -1,14 +1,20 @@
-"""Slot-based continuous-batching serving engine for c2i generation, in
-PyTorch.
+"""Slot-based continuous-batching serving engine for c2i and t2i
+generation, in PyTorch.
 
-Counterpart of `llamagen_tpu/serve/engine.py` (its c2i half, one device).
-Every step decodes ALL slots over a dense preallocated KV cache: P request
-slots, each a [cond ‖ null] pair of cache rows (row i and row P + i), with a
-position per slot; requests are admitted into free slots at chunk
-boundaries. A c2i slot's class token runs as an ordinary step at position 0
-(the embedding select of `build_step_embeddings`), so admission costs no
-prefill. Sampling parameters are per-slot tensors written at admission, so
-requests with different cfg scales, temperatures and filters share a step.
+Counterpart of `llamagen_tpu/serve/engine.py` (one device). Every step
+decodes ALL slots over a dense preallocated KV cache: P request slots, each
+a [cond ‖ null] pair of cache rows (row i and row P + i), with a position
+per slot; requests are admitted into free slots at chunk boundaries. A c2i
+slot's class token runs as an ordinary step at position 0 (the embedding
+select of `build_step_embeddings`), so admission costs no prefill. A t2i
+slot is admitted out of band: `make_admit_batch` runs the 120-token
+caption prefill of up to min(P, 8) pairs in one forward and samples their
+first tokens, `scatter_pairs` installs the rows in the slots' cache rows
+(an int8 cache quantises rows [0, base) as `generate` does, rows [base, T)
+go to the exact tail) with the slots' left-pad counts, and every in-chunk
+step is then pure decode with `prefix_pad`. Sampling parameters are
+per-slot tensors written at admission, so requests with different cfg
+scales, temperatures and filters share a step.
 
 The JAX chunk is one compiled `fori_loop`; here it is a Python loop of
 `n_steps <= chunk` steps whose state is updated in place or by
@@ -17,13 +23,11 @@ its own mirror of each slot's progress (positions, tokens left, filters),
 so it sizes each chunk, checks the cache bounds and decides whether the
 top-k / top-p sort runs without reading the device. The decode-attention
 kernel (`ops/attention.py`) takes the `[2P]` positions in every layer; with
-W8A16 weights the layer matmuls run on the int8 kernel at 2P rows.
+W8A16 weights the layer matmuls run on the int8 kernel at 2P rows (and, at
+a t2i admission, at 2A * 120 rows).
 
-Not ported yet: t2i serving (caption admission, `submit_caption`,
-`generate_t2i`, `make_admit_batch`, `make_admit_pair`,
-`scatter_pair_local`, `make_scatter_pair`; ROADMAP.md Queue 1 item 4; a
-t2i model raises `NotImplementedError`) and tensor-parallel serving (the
-`tp` argument; ROADMAP.md Queue 1 item 9).
+Not ported yet: tensor-parallel serving (the `tp` argument and JAX's
+pair-granular `make_admit_pair`; ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from __future__ import annotations
 import queue
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +43,8 @@ import torch
 from llamagen_tpu_torch.config import GPTConfig, find_multiple
 from llamagen_tpu_torch.models import gpt
 from llamagen_tpu_torch.ops import sampling
-
-_T2I = "t2i serving is not ported yet (ROADMAP.md Queue 1 item 4)"
+from llamagen_tpu_torch.ops.attention import TAIL, quantize_rows
+from llamagen_tpu_torch.ops.generate import build_cfg_batch
 
 
 class SlotSampling(NamedTuple):
@@ -70,6 +74,7 @@ class EngineState:
     generator: torch.Generator
     sp_slots: SlotSampling
     output_counts: Optional[torch.Tensor] = None  # [P, V] int32 penalties
+    prefix_pad: Optional[torch.Tensor] = None  # t2i: [P] int32 left pads
 
 
 @dataclass
@@ -134,21 +139,29 @@ def init_engine_state(cfg: GPTConfig, num_pairs: int, max_new_tokens: int,
                                     device),
         output_counts=(torch.zeros(num_pairs, cfg.vocab_size,
                                    dtype=torch.int32, device=device)
-                       if track_counts else None))
+                       if track_counts else None),
+        prefix_pad=(zeros(torch.int32) if cfg.model_type == "t2i" else None))
 
 
 def build_step_embeddings(model: gpt.Transformer, state: EngineState,
-                          compute_dtype: torch.dtype) -> torch.Tensor:
+                          compute_dtype: torch.dtype
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Per-slot input embeddings of one step, [2P, D], the cond half over
-    the uncond half: a slot at its first step (active, pos 0) reads its
-    class / null-class embedding, every other slot its last token's."""
+    the uncond half, and the rows' left-pad counts [2P] (t2i; else None).
+    c2i: a slot at its first step (active, pos 0) reads its class /
+    null-class embedding, every other slot its last token's. t2i: the
+    caption prefill ran at admission, so every slot feeds its last
+    token."""
     cfg = model.cfg
     tok_emb = model.tok_embeddings.weight[state.cur_token]
+    if cfg.model_type == "t2i":
+        return (torch.cat([tok_emb, tok_emb]).to(compute_dtype),
+                torch.cat([state.prefix_pad, state.prefix_pad]))
     table = model.cls_embedding.embedding_table.weight
     first = (state.active & (state.pos == 0))[:, None]
     emb_cond = torch.where(first, table[state.labels], tok_emb)
     emb_uncond = torch.where(first, table[cfg.num_classes], tok_emb)
-    return torch.cat([emb_cond, emb_uncond]).to(compute_dtype)
+    return torch.cat([emb_cond, emb_uncond]).to(compute_dtype), None
 
 
 def sample_and_advance(state: EngineState, logits: torch.Tensor,
@@ -216,14 +229,105 @@ def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
         if admit_mask is not None:
             apply_admission(state, admit_mask, admit_labels, admit_sp)
         for _ in range(n_steps):
-            emb = build_step_embeddings(model, state, compute_dtype)
+            emb, pad2 = build_step_embeddings(model, state, compute_dtype)
             pos2 = torch.cat([state.pos, state.pos])
             logits = gpt.decode_step_slots(model, emb, pos2, state.cache,
-                                           compute_dtype)
+                                           compute_dtype, prefix_pad=pad2)
             sample_and_advance(state, logits, max_new_tokens, filters_off)
         return state
 
     return engine_step
+
+
+class Admitted(NamedTuple):
+    """A t2i admission's results for A pairs, on the engine's device."""
+    firsts: torch.Tensor     # [A] int64 first tokens
+    rows: List[torch.Tensor]  # per layer [A, 2, T, 2F] (cond, uncond)
+    pads: torch.Tensor       # [A] int32 left-pad counts
+
+
+def make_admit_batch(model: gpt.Transformer,
+                     compute_dtype: torch.dtype = torch.bfloat16):
+    """The t2i admission prefill (JAX `make_admit_batch`): admit(captions
+    [A, T, caption_dim], emb_masks [A, T] bool, sp_rows SlotSampling of [A]
+    tensors, generator, filters_off) runs the A pairs' caption prefills in
+    ONE forward ([2A, T]: cond rows first, the null caption's second),
+    mixes each pair's logits with its own cfg scale and samples its first
+    token. A is whatever the caller gives (the engine: at most min(P, 8)
+    pairs a call). Returns `Admitted`."""
+    cfg = model.cfg
+    t = cfg.cls_token_num
+
+    @torch.no_grad()
+    def admit(captions: torch.Tensor, emb_masks: torch.Tensor,
+              sp_rows: SlotSampling, generator: torch.Generator,
+              filters_off: bool = False) -> Admitted:
+        a = captions.shape[0]
+        cond = build_cfg_batch(model, captions.to(compute_dtype), True)
+        m = emb_masks.bool()
+        stage = gpt.init_cache(cfg, 2 * a, find_multiple(t, 8),
+                               compute_dtype, captions.device)
+        logits = gpt.prefill(model, cond, stage, compute_dtype,
+                             prefix_mask=torch.cat([m, m]))
+        mixed = sampling.cfg_mix(logits, sp_rows.cfg_scale)
+        firsts = sampling.sample_per_slot(mixed, sp_rows.temperature,
+                                          sp_rows.top_k, sp_rows.top_p,
+                                          generator, filters_off)
+        rows = [torch.stack([ckv[:a, :t], ckv[a:, :t]], dim=1)
+                for ckv in stage.kv]
+        return Admitted(firsts, rows, (t - m.sum(dim=1)).to(torch.int32))
+
+    return admit
+
+
+@torch.no_grad()
+def scatter_pairs(state: EngineState, cfg: GPTConfig, slots: torch.Tensor,
+                  adm: Admitted, sp_rows: SlotSampling) -> None:
+    """Install admitted t2i pairs in their slots, in place (JAX
+    `scatter_pair_local` for a group of pairs): slots [A] int64, the
+    pairs' cache rows go to rows (slot, P + slot). A bf16/f32 cache takes
+    rows [0, T); an int8 cache takes rows [0, base), base = 32 * (T // 32),
+    quantised by `quantize_rows` (as `generate`'s `quantize_cache`), and
+    rows [base, T) go exact into the tail. Each slot then stands at pos T
+    with its first token written, n_generated 1, its left pad and its
+    sampling parameters; its penalty counts hold the first token."""
+    p = state.pos.shape[0]
+    t = cfg.cls_token_num
+    f = cfg.kv_heads * cfg.head_dim
+    idx = torch.cat([slots, slots + p])
+    cache = state.cache
+    base = t // TAIL * TAIL if cache.quantized else t
+    for l, r in enumerate(adm.rows):
+        r = torch.cat([r[:, 0], r[:, 1]])  # [2A, T, 2F]: cond rows first
+        if cache.quantized:
+            kq, ks = quantize_rows(r[:, :base, :f])
+            vq, vs = quantize_rows(r[:, :base, f:])
+            cache.kv[l][idx, :base] = torch.cat([kq, vq], dim=-1)
+            cache.kv_scale[l][idx, :base] = torch.stack(
+                [ks, vs], dim=-1).to(torch.bfloat16)
+            cache.tail[l][idx, :t - base] = r[:, base:].to(
+                cache.tail[l].dtype)
+        else:
+            cache.kv[l][idx, :t] = r.to(cache.kv[l].dtype)
+    # tensor values and index_fill_ only: `x[idx] = scalar` copies the
+    # scalar from the host, which synchronises
+    firsts = adm.firsts
+    state.pos.index_fill_(0, slots, t)
+    state.active.index_fill_(0, slots, True)
+    state.cur_token[slots] = firsts
+    state.n_generated.index_fill_(0, slots, 1)
+    row = torch.zeros(len(slots), state.tokens_out.shape[1],
+                      dtype=torch.long, device=firsts.device)
+    row[:, 0] = firsts
+    state.tokens_out[slots] = row
+    state.prefix_pad[slots] = adm.pads
+    for a, v in zip(state.sp_slots, sp_rows):
+        a[slots] = v.to(a.dtype)
+    counts = state.output_counts
+    if counts is not None:
+        counts.index_fill_(0, slots, 0)
+        counts.index_put_((slots, firsts),
+                          torch.ones_like(firsts, dtype=counts.dtype))
 
 
 @dataclass
@@ -231,6 +335,8 @@ class Request:
     label: int
     request_id: int
     sp: Optional[SamplingParams] = None      # per-request override
+    caption: Optional[torch.Tensor] = None   # t2i: [T, caption_dim] f32 CPU
+    emb_mask: Optional[torch.Tensor] = None  # t2i: [T] bool, left-padded
     result: Optional[np.ndarray] = None
     submitted_at: float = field(default_factory=time.time)
     admitted_at: Optional[float] = None      # host time of admission
@@ -251,8 +357,6 @@ class ServeEngine:
                  cache_dtype: Optional[torch.dtype] = None,
                  track_penalties: bool = False):
         cfg = model.cfg
-        if cfg.model_type != "c2i":
-            raise NotImplementedError(_T2I)
         if not 0 < max_new_tokens <= cfg.block_size:
             raise ValueError(f"max_new_tokens {max_new_tokens} outside "
                              f"(0, block_size {cfg.block_size}]")
@@ -280,6 +384,12 @@ class ServeEngine:
         self._slot_pos = np.zeros((num_pairs,), np.int64)
         self._slot_filters_off = np.ones((num_pairs,), bool)
         self.steps_run = 0  # decode steps since construction (host count)
+        self.admissions = 0  # t2i admission prefills (host count)
+        self.t2i = cfg.model_type == "t2i"
+        if self.t2i:
+            # batched admission: one prefill for up to _abatch pending pairs
+            self._abatch = min(num_pairs, 8)
+            self._admit_fn = make_admit_batch(model, compute_dtype)
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._next_id = 0
         self.reset_stats()
@@ -289,11 +399,39 @@ class ServeEngine:
         """A c2i request; `sp` overrides the engine's sampling parameters
         for this request only. Per-request penalties need the engine built
         with track_penalties=True (the counts buffer)."""
+        if self.t2i:
+            raise ValueError("a t2i engine takes captions: submit_caption")
+        return self._enqueue(Request(label=int(label),
+                                     request_id=self._next_id,
+                                     sp=self._checked(sp)))
+
+    def submit_caption(self, caption, emb_mask,
+                       sp: Optional[SamplingParams] = None) -> Request:
+        """A t2i request: caption [T, caption_dim] T5 features, left-padded
+        (`text.t5.left_pad_embeddings`), and its [T] validity mask (array
+        or tensor; kept on the host until admission)."""
+        if not self.t2i:
+            raise ValueError("a c2i engine takes class labels: submit")
+        t = self.cfg.cls_token_num
+        caption = torch.as_tensor(caption).to("cpu", torch.float32)
+        emb_mask = torch.as_tensor(emb_mask).to("cpu").bool()
+        if caption.shape != (t, self.cfg.caption_dim) \
+                or emb_mask.shape != (t,):
+            raise ValueError(f"caption {tuple(caption.shape)} / mask "
+                             f"{tuple(emb_mask.shape)}, expected "
+                             f"{(t, self.cfg.caption_dim)} / {(t,)}")
+        return self._enqueue(Request(label=0, request_id=self._next_id,
+                                     sp=self._checked(sp), caption=caption,
+                                     emb_mask=emb_mask))
+
+    def _checked(self, sp: Optional[SamplingParams]) -> SamplingParams:
         sp = sp or self.sp
         if sp.uses_penalties and self.state.output_counts is None:
             raise ValueError("per-request penalties need ServeEngine("
                              "track_penalties=True)")
-        req = Request(label=int(label), request_id=self._next_id, sp=sp)
+        return sp
+
+    def _enqueue(self, req: Request) -> Request:
         self._next_id += 1
         self.pending.put(req)
         return req
@@ -305,11 +443,37 @@ class ServeEngine:
                           np.float32)
         for i, req in admitted.items():
             packed[:, i] = [1.0, req.label] + req.sp.row()
-        host = torch.from_numpy(packed)
+        dev = self._to_device(torch.from_numpy(packed))
+        return dev[0] > 0, dev[1].long(), SlotSampling(*dev[2:])
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """One host-to-device copy that does not synchronise (pinned,
+        asynchronous)."""
         if self.device.type == "cuda":
             host = host.pin_memory()
-        dev = host.to(self.device, non_blocking=True)
-        return dev[0] > 0, dev[1].long(), SlotSampling(*dev[2:])
+        return host.to(self.device, non_blocking=True)
+
+    def _admit_captions(self, taken: List[Tuple[int, Request]]) -> None:
+        """t2i admission of (slot, request) pairs: one `make_admit_batch`
+        prefill per group of at most _abatch pairs, then `scatter_pairs`.
+        The captions, masks, slots and sampling parameters of a group go to
+        the device in two asynchronous copies."""
+        k = 1 + len(SlotSampling._fields)  # slot, then the parameters
+        for start in range(0, len(taken), self._abatch):
+            grp = taken[start:start + self._abatch]
+            packed = torch.stack([torch.cat([
+                torch.tensor([i] + req.sp.row()), req.emb_mask.float()])
+                for i, req in grp])
+            dev = self._to_device(packed)
+            caps = self._to_device(torch.stack([req.caption
+                                                for _, req in grp]))
+            sp_rows = SlotSampling(*dev[:, 1:k].t())
+            adm = self._admit_fn(caps, dev[:, k:] > 0, sp_rows,
+                                 self.state.generator,
+                                 all(req.sp.filters_off for _, req in grp))
+            scatter_pairs(self.state, self.cfg, dev[:, 0].long(), adm,
+                          sp_rows)
+            self.admissions += 1
 
     def _admit_and_step(self) -> None:
         admitted: Dict[int, Request] = {}
@@ -317,14 +481,18 @@ class ServeEngine:
             if self.slot_request[i] is None and not self.pending.empty():
                 req = self.pending.get()
                 self.slot_request[i] = admitted[i] = req
-                self._slot_remaining[i] = self.max_new_tokens
-                self._slot_pos[i] = 0
+                # a t2i slot samples its first token at admission and then
+                # decodes from position T
+                self._slot_remaining[i] = self.max_new_tokens - self.t2i
+                self._slot_pos[i] = self.cfg.cls_token_num if self.t2i else 0
                 self._slot_filters_off[i] = req.sp.filters_off
+        if self.t2i and admitted:
+            self._admit_captions(list(admitted.items()))
         # exact-step chunking: run until the next slot finishes (or the
         # chunk cap), so no finished slot idles through a fixed chunk
         busy = self._slot_remaining > 0
         n_steps = int(min(self._slot_remaining[busy].min(), self.chunk)) \
-            if busy.any() else self.chunk
+            if busy.any() else 0
         # the highest cache row each slot writes in this chunk: busy slots
         # advance n_steps, idle ones step at their fixed position
         last = self._slot_pos + np.where(busy, n_steps - 1, 0)
@@ -337,7 +505,8 @@ class ServeEngine:
         now = time.time()
         for req in admitted.values():
             req.admitted_at = now  # _harvest interpolates the first token
-        adm = self._admission(admitted) if admitted else (None, None, None)
+        adm = (self._admission(admitted) if admitted and not self.t2i
+               else (None, None, None))
         self.state = self.step_fn(self.state, *adm, n_steps, filters_off)
         self.steps_run += n_steps
         self._slot_pos[busy] += n_steps
@@ -356,10 +525,11 @@ class ServeEngine:
             req.finished_at = time.time()
             self._latencies.append(req.finished_at - req.submitted_at)
             # the only wall-clock observations are the admission and this
-            # read: the first token (step 1 of the admission chunk) is
-            # interpolated at the measured per-step rate
+            # read: the first token (step 1 of the admission chunk for c2i,
+            # the admission prefill for t2i) is interpolated at the
+            # measured per-step rate
             per_step = (req.finished_at - req.admitted_at) \
-                / max(self.max_new_tokens, 1)
+                / max(self.max_new_tokens - self.t2i, 1)
             req.first_token_at = req.admitted_at + per_step
             self._ttfts.append(req.first_token_at - req.submitted_at)
             self._completed += 1
@@ -376,6 +546,14 @@ class ServeEngine:
         """Offline batch: labels [N] -> token grids [N, max_new_tokens], in
         submission order."""
         reqs = [self.submit(l) for l in labels]
+        self.run_until_idle()
+        return np.stack([r.result for r in reqs])
+
+    def generate_t2i(self, captions, emb_masks) -> np.ndarray:
+        """Offline t2i batch: captions [N, T, caption_dim] + emb_masks
+        [N, T] -> token grids [N, max_new_tokens], in submission order."""
+        reqs = [self.submit_caption(c, m) for c, m in zip(captions,
+                                                           emb_masks)]
         self.run_until_idle()
         return np.stack([r.result for r in reqs])
 

@@ -4,12 +4,15 @@
 `load_torch_state_dict` reads a `.pt` checkpoint (the port's copy of the
 JAX package's loader, `llamagen_tpu/utils/convert.py`).
 
-The other functions are the inverses of that module's `convert_gpt` and
-`convert_vq`: per-layer tensors are unstacked from `[L, ...]`, `[in, out]`
-kernels go back to `[out, in]`, HWIO convolutions back to OIHW, and dense
+`gpt_state_dict_from_jax` and `vq_state_dict_from_jax` are the inverses
+of that module's `convert_gpt` and `convert_vq`: per-layer tensors are
+unstacked from `[L, ...]`, `[in, out]` kernels go back to `[out, in]`,
+HWIO convolutions back to OIHW, and dense
 `[I, O]` kernels that upstream stores as 1x1 convolutions back to
 `[O, I, 1, 1]`. Inputs are numpy arrays (`jax.tree.map(np.asarray, p)`);
 outputs are dicts of CPU torch tensors for `load_state_dict`.
+`t5_state_dict_from_flax` carries HF Flax T5 encoder weights (what the
+JAX package's `text/t5.py` runs) into the port's `text/t5.py::T5Encoder`.
 """
 
 from __future__ import annotations
@@ -50,15 +53,22 @@ def _t(x) -> torch.Tensor:
 
 def gpt_state_dict_from_jax(params: Mapping[str, Any],
                             cfg: GPTConfig) -> StateDict:
-    """JAX `models.gpt` params (numpy) -> port `Transformer` state dict."""
-    if cfg.model_type != "c2i":
-        raise NotImplementedError("t2i conditioning is not ported yet")
+    """JAX `models.gpt` params (numpy) -> port `Transformer` state dict
+    (c2i: the class table; t2i: the caption MLP and `uncond_embedding`,
+    JAX `utils/convert.py:195-203` inverted)."""
     layers = params["layers"]
+    cls = params["cls_embedding"]
     sd = {"tok_embeddings.weight": _t(params["tok_embeddings"]),
-          "cls_embedding.embedding_table.weight":
-              _t(params["cls_embedding"]["embedding_table"]),
           "norm.weight": _t(params["norm"]),
           "output.weight": _t(np.asarray(params["output"]).T)}
+    if cfg.model_type == "c2i":
+        sd["cls_embedding.embedding_table.weight"] = \
+            _t(cls["embedding_table"])
+    else:
+        for fc in ("fc1", "fc2"):
+            sd[f"cls_embedding.cap_proj.{fc}.weight"] = \
+                _t(np.asarray(cls[fc]["kernel"]).T)
+        sd["cls_embedding.uncond_embedding"] = _t(cls["uncond_embedding"])
     linear = {"wqkv": "attention.wqkv", "wo": "attention.wo",
               "w1": "feed_forward.w1", "w2": "feed_forward.w2",
               "w3": "feed_forward.w3"}
@@ -67,6 +77,31 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
             sd[f"layers.{i}.{norm}.weight"] = _t(layers[norm][i])
         for key, name in linear.items():
             sd[f"layers.{i}.{name}.weight"] = _t(np.asarray(layers[key][i]).T)
+    return sd
+
+
+def t5_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """HF `FlaxT5EncoderModel` params (numpy) -> the port `T5Encoder`
+    state dict (HF's torch keys; Dense kernels `[in, out]` transposed)."""
+    sd = {"shared.weight": _t(params["shared"]["embedding"])}
+    enc = params["encoder"]
+    for i, block in sorted(enc["block"].items(), key=lambda kv: int(kv[0])):
+        attn, ff = block["layer"]["0"], block["layer"]["1"]
+        base = f"encoder.block.{i}.layer"
+        for key in ("q", "k", "v", "o"):
+            sd[f"{base}.0.SelfAttention.{key}.weight"] = \
+                _t(np.asarray(attn["SelfAttention"][key]["kernel"]).T)
+        if "relative_attention_bias" in attn["SelfAttention"]:
+            sd[f"{base}.0.SelfAttention.relative_attention_bias.weight"] = \
+                _t(attn["SelfAttention"]["relative_attention_bias"]
+                   ["embedding"])
+        for key in ("wi_0", "wi_1", "wo"):
+            sd[f"{base}.1.DenseReluDense.{key}.weight"] = \
+                _t(np.asarray(ff["DenseReluDense"][key]["kernel"]).T)
+        sd[f"{base}.0.layer_norm.weight"] = _t(attn["layer_norm"]["weight"])
+        sd[f"{base}.1.layer_norm.weight"] = _t(ff["layer_norm"]["weight"])
+    sd["encoder.final_layer_norm.weight"] = \
+        _t(enc["final_layer_norm"]["weight"])
     return sd
 
 

@@ -29,6 +29,10 @@ at C 5, pos 288): host µs per call over 2000 calls enqueued back to
 back. Run it in a copy of an earlier tree too (copied into its `tests/`)
 to compare trees, in alternating pairs.
 `--w8a16-only` runs the W8A16 path alone (for paired runs of two trees).
+`--t2i` runs the t2i sampling path alone: GPT-XL 512 px (120 caption
+tokens, left pads 0, 60, 100 and 119, bf16 weights and cache), 4 captions
++ CFG 7.5, top-k 1000, the decode loop (`prefix_pad` in every layer) at
+positions 632..663, the mean position of its 1,024 tokens.
 Prints a JSON object as its last line (and writes it to `out.json` when
 given). Needs a CUDA device.
 """
@@ -131,6 +135,37 @@ def _wrapper_host_us(w4_model, w8_model, cache, cache8, dev, calls=2000):
     return out
 
 
+def t2i_step_profile(dev):
+    """The t2i sampling path's decode step (`--t2i`), profiled."""
+    from chip_smoke import (T2I_CFG, T2I_PADS, T2I_TOP_K, t2i_captions,
+                            t2i_model)
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.ops import sampling
+    from llamagen_tpu_torch.ops.generate import build_cfg_batch, caption_masks
+    model = t2i_model(dev, 512)
+    cfg = model.cfg
+    caps, masks = t2i_captions(dev, T2I_PADS, seed=90)
+    prefix_mask, prefix_pad = caption_masks(masks, 120, True)
+    cache = gpt.init_cache(cfg, 8, 1152, torch.bfloat16, dev)
+    gpt.prefill(model, build_cfg_batch(model, caps, True), cache,
+                prefix_mask=prefix_mask)
+    tok = torch.zeros(4, dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def steps(n=32, pos0=632):
+        nonlocal tok
+        for i in range(n):
+            logits = gpt.decode_step(model, torch.cat([tok, tok]), pos0 + i,
+                                     cache, prefix_pad=prefix_pad)
+            tok = sampling.sample(sampling.cfg_mix(logits, T2I_CFG), gen,
+                                  top_k=T2I_TOP_K)
+        torch.cuda.synchronize()
+        return n
+
+    steps(8, 600)  # warm-up
+    return _profile(steps)
+
+
 def main(argv):
     only_w8 = "--w8a16-only" in argv
     paths = [a for a in argv if not a.startswith("--")]
@@ -151,6 +186,21 @@ def main(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    if "--t2i" in argv:
+        res = {"card": smi}
+        r = res["t2i_step"] = t2i_step_profile(dev)
+        print(f"t2i_step (GPT-XL 512, bf16, x{r['units']}): wall "
+              f"{r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f}"
+              f" ms (idle {100 * r['idle_share']:.1f} %), "
+              f"{r['kernels']:.0f} kernels")
+        for g, ms in sorted(r["device_ms_by_group"].items(),
+                            key=lambda kv: -kv[1]):
+            print(f"  {ms:8.3f} ms  {g}")
+        if out_path:
+            Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+            Path(out_path).write_text(json.dumps(res) + "\n")
+        print(json.dumps(res))
+        return
     cfg = gpt_config("GPT-L", block_size=576, cls_token_num=1)
     model = gpt.init_weights(gpt.Transformer(cfg, device=dev,
                                              dtype=torch.bfloat16), seed=0)

@@ -3,10 +3,11 @@ sampling (llamagen_tpu_torch.ops.sampling) against the JAX package on the
 CPU: the per-slot functions equal JAX's on the same logits; greedy engine
 tokens (f32 cache, and W8A16 + int8 KV across the pos 31 flush) equal the
 JAX `ServeEngine`'s exactly, with slot reuse, staggered positions and
-per-request parameters, and equal the port's own `generate`."""
+per-request parameters, and equal the port's own `generate`; so do the
+t2i engine's (`submit_caption`, batched caption admission, `prefix_pad`),
+f32 and W8A16 + int8 KV across the flushes at 127 and 159."""
 
 import copy
-import types
 
 import numpy as np
 import pytest
@@ -22,7 +23,6 @@ from llamagen_tpu.ops import sampling as jsampling
 from llamagen_tpu.ops.quant_matmul import quantize_gpt_params as jquantize
 from llamagen_tpu.serve.engine import SamplingParams as JSamplingParams
 from llamagen_tpu.serve.engine import ServeEngine as JServeEngine
-from llamagen_tpu_torch.config import replace
 from llamagen_tpu_torch.models import gpt
 from llamagen_tpu_torch.ops import sampling
 from llamagen_tpu_torch.ops.generate import generate
@@ -290,16 +290,98 @@ def test_empty_int8_cache():
 
 
 def test_refuses_what_is_not_ported(pair):
-    """A t2i model raises, naming its ROADMAP.md item; per-request
-    penalties need the counts buffer; max_new_tokens past the rope table
-    is refused."""
+    """A c2i engine refuses captions; per-request penalties need the
+    counts buffer; max_new_tokens past the rope table is refused."""
     _, model = pair
-    t2i = types.SimpleNamespace(cfg=replace(NANO, model_type="t2i"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ServeEngine(t2i)
     eng = ServeEngine(model, num_pairs=1, max_new_tokens=8,
                       compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="submit"):
+        eng.submit_caption(np.zeros((1, 2048)), np.ones(1))
     with pytest.raises(ValueError, match="track_penalties"):
         eng.submit(1, sp=SamplingParams(repetition_penalty=1.2))
     with pytest.raises(ValueError, match="max_new_tokens"):
         ServeEngine(model, max_new_tokens=NANO.block_size + 1)
+
+
+def _drive_t2i(eng, caps, masks, sp_of):
+    """`_drive` for captions: one request, one chunk, then four more, the
+    last three reusing slots."""
+    reqs = [eng.submit_caption(caps[0], masks[0], sp=sp_of(0))]
+    eng._admit_and_step()
+    reqs += [eng.submit_caption(c, m, sp=sp_of(i + 1))
+             for i, (c, m) in enumerate(zip(caps[1:], masks[1:]))]
+    eng.run_until_idle()
+    return np.stack([r.result for r in reqs])
+
+
+@pytest.mark.parametrize("path", ["f32", "w8a16-int8kv"])
+def test_t2i_engine_greedy_matches_jax_engine_and_generate(path):
+    """5 caption requests (pads 0, 37, 96, 119, 60) over 2 slots, chunk 4,
+    cfg 2.0, temperature 0 and 1e-6 in turn, 48 tokens (positions
+    120-167): the port's t2i engine, the JAX t2i engine (f32: XLA; int8:
+    Pallas interpret, f32 windows) and the port's `generate(emb_masks=...)`
+    give the same tokens."""
+    from test_torch_t2i import T2I, captions, make_t2i_pair
+
+    params, model = make_t2i_pair()
+    int8 = path == "w8a16-int8kv"
+    if int8:
+        params, model = jquantize(params), quantize_gpt_params(model)
+    caps, masks = captions([0, 37, 96, 119, 60], seed=6)
+    common = dict(num_pairs=2, max_new_tokens=MAX_NEW, chunk=4)
+    temps = [0.0, 1e-6]
+    jeng = JServeEngine(params, jax_config(T2I), compute_dtype=jnp.float32,
+                        use_kernel=int8,
+                        cache_dtype=jnp.int8 if int8 else None, **common)
+    if int8:  # f32 windows, as in the c2i comparison above
+        jeng.state = jeng.state._replace(recent=tuple(
+            jnp.zeros(r.shape, jnp.float32) for r in jeng.state.recent))
+    jtok = _drive_t2i(jeng, caps, masks, lambda i: JSamplingParams(
+        cfg_scale=2.0, temperature=temps[i % 2]))
+    eng = ServeEngine(model, compute_dtype=torch.float32,
+                      cache_dtype=torch.int8 if int8 else None, **common)
+    tok = _drive_t2i(eng, caps, masks, lambda i: SamplingParams(
+        cfg_scale=2.0, temperature=temps[i % 2]))
+    ref = generate(model, torch.tensor(caps), emb_masks=torch.tensor(masks),
+                   max_new_tokens=MAX_NEW, cfg_scale=2.0, sample_logits=False,
+                   compute_dtype=torch.float32,
+                   cache_dtype=torch.int8 if int8 else torch.float32)
+    assert tok.shape == (5, MAX_NEW) and len(np.unique(tok)) > 8
+    np.testing.assert_array_equal(tok, jtok)
+    np.testing.assert_array_equal(tok, ref.numpy())
+    assert eng.admissions == 5  # the staggered slots free one at a time
+
+
+def test_t2i_bookkeeping_stats_and_refusals():
+    """Two captions admitted in one prefill: each slot stands at T with its
+    first token, finishes after max_new - 1 steps; stats() counts them
+    (TTFT includes the admission prefill); a t2i engine refuses labels and
+    captions of another shape; a reused slot gives a fresh slot's
+    tokens."""
+    from test_torch_t2i import T, T2I, captions, make_t2i_pair
+
+    _, model = make_t2i_pair()
+    caps, masks = captions([5, 90], seed=7)
+    sp = SamplingParams(cfg_scale=3.0, temperature=0.0)
+    eng = ServeEngine(model, num_pairs=2, max_new_tokens=16, chunk=8,
+                      compute_dtype=torch.float32, sampling_params=sp)
+    with pytest.raises(ValueError, match="submit_caption"):
+        eng.submit(3)
+    with pytest.raises(ValueError, match="expected"):
+        eng.submit_caption(caps[0][:, :8], masks[0])
+    out = eng.generate_t2i(caps, masks)
+    st = eng.stats()
+    assert out.shape == (2, 16) and st["completed"] == 2
+    assert eng.steps_run == 15 and eng.admissions == 1
+    assert eng.state.pos.tolist() == [T + 15] * 2
+    assert eng.state.prefix_pad.tolist() == [5, 90]
+    # the first token is sampled by the admission prefill: TTFT counts it
+    assert 0 < st["ttft_p50_s"] < st["e2e_latency_p50_s"] \
+        and st["tpot_p50_s"] > 0
+    fresh = ServeEngine(model, num_pairs=1, max_new_tokens=16, chunk=8,
+                        compute_dtype=torch.float32, sampling_params=sp)
+    again = eng.generate_t2i(caps[1:], masks[1:])  # slot 0 reused
+    np.testing.assert_array_equal(again, fresh.generate_t2i(caps[1:],
+                                                            masks[1:]))
+    np.testing.assert_array_equal(again, out[1:])
+    assert T2I.caption_dim == caps.shape[-1]

@@ -184,3 +184,35 @@ def test_sampled_run_is_in_range_and_refuses_mismatched_drafts():
     with pytest.raises(ValueError, match="vocabularies"):
         spec.generate_speculative(model, other, torch.tensor([1]),
                                   max_new_tokens=4)
+
+
+@pytest.mark.parametrize("draft_kind", ["other", "w4-self"])
+def test_t2i_greedy_with_emb_masks_equals_generate(draft_kind):
+    """t2i (120 caption tokens, pads 0, 37 and 119, CFG 4.0): greedy f32
+    `generate_speculative(emb_masks=...)` commits exactly the tokens of
+    the port's `generate(emb_masks=...)` and of JAX `generate`, with an
+    unrelated draft and with a W4 copy of the target; the masks reach both
+    prefills and every draft and verify step (`prefix_pad`)."""
+    from llamagen_tpu_torch.ops.generate import generate
+    from test_torch_t2i import T2I, captions, make_t2i_pair
+
+    params, model = make_t2i_pair()
+    draft = (make_t2i_pair(seed=1)[1] if draft_kind == "other"
+             else quantize_gpt_params_w4k(copy.deepcopy(model)))
+    emb, mask = captions([0, 37, 119], seed=4)
+    kw = dict(max_new_tokens=48, cfg_scale=4.0, sample_logits=False,
+              compute_dtype=torch.float32)
+    emb_t, mask_t = torch.tensor(emb), torch.tensor(mask)
+    got, rounds = spec.generate_speculative(model, draft, emb_t, k=3,
+                                            emb_masks=mask_t, **kw)
+    ref = generate(model, emb_t, emb_masks=mask_t,
+                   cache_dtype=torch.float32, **kw)
+    jref = jgenerate(params, jax.random.PRNGKey(0), jnp.asarray(emb),
+                     cfg=jax_config(T2I), emb_masks=jnp.asarray(mask),
+                     max_new_tokens=48, cfg_scale=4.0, sample_logits=False,
+                     compute_dtype=jnp.float32, cache_dtype=jnp.float32,
+                     use_kernel=False)
+    assert len(np.unique(ref.numpy())) > 8  # a real comparison
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jref))
+    assert rounds <= 47
