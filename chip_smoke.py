@@ -58,11 +58,13 @@ Phases, each of which raises on a failed check (exit code != 0):
    plain version (dense f32 scores, autograd) on the card: the GPT-L
    training shape [32, 576, 16, 64] bf16 (v a strided view, as the model
    gives it), [2, 577, 8, 128] f32 and bf16, head_dim 100 (padded to 128),
-   a ragged S = 257, and the bf16 kernels' tile edges S 1, 65 and 129 at
-   head_dim 64 and 128. Each prints its errors beside its tolerance; the
-   GPT-L shape prints forward, dq and dk/dv times beside the plain
-   version's, the bound, SDPA's forward and backward and the times of the
-   design K4 had before.
+   a ragged S = 257, the bf16 kernels' tile edges S 1, 65 and 129 at
+   head_dim 64 and 128, and the GPT-XL t2i training shape [32, 375, 20,
+   64] bf16 (v strided: S 375 ends mid-tile). Each prints its errors
+   beside its tolerance; the GPT-L and the t2i shapes print forward, dq
+   and dk/dv times beside the plain version's, the bound and SDPA's
+   forward and backward (GPT-L also the times of the design K4 had
+   before).
 11. The training path: the CLI (`llamagen_tpu_torch.cli.train_c2i`) at
    GPT-L 384, batch 32, N synthetic steps with the default dropouts and
    full remat. The first loss must be ln 16384 (the zeroed head), every
@@ -104,14 +106,32 @@ Phases, each of which raises on a failed check (exit code != 0):
    per step; img/s, TTFT, TPOT and e2e.
 19. Greedy f32 t2i engine == `generate(emb_masks=...)` (GPT-XL width, 2
    layers, W8A16 + int8 KV, 48 tokens across the flushes at 127 and 159).
-20. The t2i speculative path: GPT-XL 512 at full depth, bf16 target, a W4
-   copy of it drafting, k 4, the 4 padded captions of phase 17 + CFG 7.5,
-   top-k 1000, 1,024 tokens; K5 with `prefix_pad` in every draft and
-   verify step: counters exactly 36 * (k + 2) * rounds (K5) and 5 * 36 *
+20. The t2i speculative path: GPT-XL 512 cut to 18 layers, bf16 target, a
+   W4 copy of it drafting, k 4, the 4 padded captions of phase 17 + CFG
+   7.5, top-k 1000, 1,024 tokens; K5 with `prefix_pad` in every draft and
+   verify step: counters exactly 18 * (k + 2) * rounds (K5) and 5 * 18 *
    (k + 1) * rounds (K3), K1 none.
 21. Greedy f32 t2i speculative == `generate` (GPT-XL width, 2 layers, W4
    self-draft, k 4; K5 at 20 heads with `prefix_pad`, counted).
 22. The t2i CLI (`llamagen_tpu_torch.cli.sample_t2i`) at its defaults.
+23. The VQ-16 encoder and quantizer at full width, 32 x 256 px: f32 (TF32
+   off) and bf16 times, the share of bf16 ids equal to f32's, the card's
+   f32 ids equal to the port's CPU f32 ids on 2 images, the f32 encode ->
+   decode round trip (finite PSNR / SSIM, codebook usage).
+24. The tokenizer CLIs' batch functions (`extract_codes.encode_batch` in
+   the plain, flip and ten-crop layouts, `reconstruction_vq`'s round
+   trip and scores) on seeded uint8 crops: shapes, int16 codes, finite.
+25. t2i training through `train/t2i.py::build_trainer`: GPT-XL 256 px,
+   120 caption rows x 2048 left-padded by 0-119, one sample with valid 0,
+   batch 32, bf16, full remat, the JAX CLI's dropouts, the frozen bf16
+   VQ-16 encoding the images in the step, 10 steps; K4 counters exactly
+   2 * 36 * N and 36 * N, the first loss ln 16384, all finite, the VQ
+   weights bit-unchanged; s/step, samples/s, MFU and peak memory.
+26. One t2i training step with K4 and with the plain attention (GPT-XL
+   width, 4 layers), bf16 and f32, within phase 12's bounds.
+27. The t2i training CLI (`llamagen_tpu_torch.cli.train_t2i
+   --synthetic-steps 3`) at its defaults (GPT-XL, batch 256): counters
+   2 * 36 * 3 and 36 * 3, the checkpoint written.
 
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
@@ -122,8 +142,9 @@ Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
 last line is `{"ok": true, "device": {...}}`; the line before it is the
 kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
-library time; then K1, K2 and K5 again at the t2i shapes), the one before
-that the card's name and power limit.
+library time; then K1, K2 and K5 again at the t2i sampling shapes and K4
+at the t2i training shape), the one before that the card's name and power
+limit.
 Needs a CUDA device; runs nothing without one.
 """
 
@@ -142,10 +163,15 @@ import torch.nn.functional as F
 
 BATCH, CFG_SCALE, TOKENS = 8, 2.0, 576
 TRAIN_BATCH, TRAIN_STEPS = 32, 10
+# t2i training: GPT-XL 256 px, 120 caption rows + 255 image tokens, 20
+# heads of 64: K4's shape in every layer of the step
+T2I_TRAIN_SHAPE = (TRAIN_BATCH, 120 + 255, 20, 64)
+VQ_CPU_IMAGES = 2  # the f32 encode held to the CPU's on these images
 H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3, the same data sheet
 SPEC_K, SPEC_CFG = 4, 4.0  # the sampling CLI's default --spec-k, --cfg-scale
 SPEC_LAYERS = 12  # the speculative path's depth (its CLI runs all 24)
+T2I_SPEC_LAYERS = 18  # the t2i speculative path's depth (GPT-XL has 36)
 # bench.py's engine point (64 pairs, int8 head, chunk 64); 80 requests: a
 # full wave and 16 that reuse a slot
 ENGINE_PAIRS, ENGINE_REQUESTS, ENGINE_CHUNK = 64, 80, 64
@@ -1667,20 +1693,20 @@ def run_t2i_engine_greedy_f32(dev):
 
 
 def run_t2i_speculative(dev):
-    """The t2i speculative path at 512 px: GPT-XL at full depth, bf16
-    weights and caches, a grouped-W4 copy of it drafting (self-speculation),
+    """The t2i speculative path at 512 px: GPT-XL cut to T2I_SPEC_LAYERS
+    layers, bf16 weights and caches, a grouped-W4 copy of it drafting (self-speculation),
     k 4, 4 captions left-padded by 0, 60, 100 and 119 + CFG 7.5, top-k
     1000, sampled, 1,024 tokens. Each round runs k + 1 draft steps (C 1)
     and one verify (C 5), every one on K5 with `prefix_pad`: counters
-    exactly 36 * (k + 2) * rounds (K5) and 5 * 36 * (k + 1) * rounds (K3,
-    the draft's decode matmuls); K1 none."""
+    exactly layers * (k + 2) * rounds (K5) and 5 * layers * (k + 1) *
+    rounds (K3, the draft's decode matmuls); K1 none."""
     import copy
     from llamagen_tpu_torch.ops.attention import decode_attention
     from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
     from llamagen_tpu_torch.ops.speculative import generate_speculative
     from llamagen_tpu_torch.ops.w4_matmul import (quantize_gpt_params_w4k,
                                                   w4_matmul)
-    target = t2i_model(dev, 512, seed=96)
+    target = t2i_model(dev, 512, seed=96, n_layer=T2I_SPEC_LAYERS)
     draft = quantize_gpt_params_w4k(copy.deepcopy(target))
     caps, masks = t2i_captions(dev, T2I_PADS, seed=97)
     tokens_n = target.cfg.block_size
@@ -1703,7 +1729,8 @@ def run_t2i_speculative(dev):
     k5, k3 = chunk_decode_attention.launches, w4_matmul.launches
     k1 = decode_attention.launches
     n_layer = target.cfg.n_layer
-    log(f"t2i speculative path (GPT-XL 512 bf16 target, W4 g128 self-draft, "
+    log(f"t2i speculative path (GPT-XL 512 bf16 target, {n_layer} layers, "
+        f"W4 g128 self-draft, "
         f"k {SPEC_K}, {T2I_BATCH} captions with pads {T2I_PADS} + CFG "
         f"{T2I_CFG}, top-k {T2I_TOP_K}, sampled): {tokens_n} tokens in "
         f"{rounds} rounds = {tokens_n / rounds:.3f} tokens/round, "
@@ -1833,7 +1860,8 @@ def check_train_attention(dev):
     bf16 1e-2 for o (1-2 bf16 ulps of the largest output) and 2e-2 for
     dq/dk/dv (p and ds are rounded to bf16 at other points: the kernel
     rounds ds as the TPU kernel does, the plain version's autograd rounds
-    dp; delta = rowsum(do * o) carries o's rounding)."""
+    dp; delta = rowsum(do * o) carries o's rounding). Then the times at
+    the GPT-L c2i training shape and at the GPT-XL t2i one."""
     from llamagen_tpu_torch.ops import train_attention as ta
     gpt_l_shape = (TRAIN_BATCH, TOKENS, 16, 64)
     cases = [(gpt_l_shape, torch.bfloat16, True),
@@ -1845,6 +1873,9 @@ def check_train_attention(dev):
     # (backward) query rows, one row
     cases += [((3, s, 4, d), torch.bfloat16, True)
               for d in (64, 128) for s in (1, 65, 129)]
+    # GPT-XL t2i training: S 375 ends mid-tile for the forward's 128 query
+    # rows and the backward's 64; v's batch stride is 375 * 3840
+    cases.append((T2I_TRAIN_SHAPE, torch.bfloat16, True))
     abs_err = {}
     for i, (shape, dtype, strided) in enumerate(cases):
         q, k, v, w = attention_inputs(dev, shape, dtype, 20 + i, strided)
@@ -1860,16 +1891,32 @@ def check_train_attention(dev):
             f"dv {rel[3]:.3g} (tol {2 * tol:g})")
         if not (rel[0] <= tol and max(rel[1:]) <= 2 * tol):
             raise AssertionError(f"K4 {shape} {dtype} disagrees")
-        if shape == gpt_l_shape:
-            abs_err = {"fwd": max_err(got[0], ref[0]),
-                       "dq": max_err(got[1], ref[1]),
-                       "dkdv": max(max_err(got[2], ref[2]),
-                                   max_err(got[3], ref[3]))}
+        if shape in (gpt_l_shape, T2I_TRAIN_SHAPE):
+            abs_err[shape] = {"fwd": max_err(got[0], ref[0]),
+                              "dq": max_err(got[1], ref[1]),
+                              "dkdv": max(max_err(got[2], ref[2]),
+                                          max_err(got[3], ref[3]))}
         del got, ref
+    t = time_train_attention(dev, gpt_l_shape, 30, "GPT-L training shape")
+    log(f"K4 against the two-pass mma.sync design it replaced (0.596 "
+        f"forward, 0.667 dq, 1.138 dk/dv ms on an NVIDIA H100 80GB HBM3 at "
+        f"700 W, one call per pair of events): forward {t['fwd']:.4f} ms, "
+        f"dq {t['dq']:.4f} + dk/dv {t['dkdv']:.4f} = "
+        f"{t['dq'] + t['dkdv']:.4f} ms")
+    t2i_t = time_train_attention(dev, T2I_TRAIN_SHAPE, 32,
+                                 "GPT-XL t2i training shape")
+    return abs_err[gpt_l_shape], t, abs_err[T2I_TRAIN_SHAPE], t2i_t
 
-    # times at the GPT-L training shape (one layer's call)
-    q, k, v, w = attention_inputs(dev, gpt_l_shape, torch.bfloat16, 30)
-    scale = 64 ** -0.5
+
+def time_train_attention(dev, shape, seed, label):
+    """K4's forward, dq and dk/dv at one layer call's shape (bf16, v
+    strided as in the model) beside the plain version, the bound and
+    SDPA's forward and backward; returns the times and the kernels'
+    record entries."""
+    from llamagen_tpu_torch.ops import train_attention as ta
+    b, s, h, d = shape
+    q, k, v, w = attention_inputs(dev, shape, torch.bfloat16, seed)
+    scale = d ** -0.5
     t = {}
     with torch.no_grad():
         t["fwd"] = cuda_ms(lambda: ta.train_attention_fwd(q, k, v, scale))
@@ -1906,8 +1953,8 @@ def check_train_attention(dev):
     # bounds per layer call: each input read once, each output written once;
     # one causal [S, S] x D product is 2 * B * H * D * S (S + 1) / 2 flops
     act = q.numel() * q.element_size()
-    rowstat = TRAIN_BATCH * 16 * TOKENS * 4  # lse or delta, f32
-    prod = 2 * TRAIN_BATCH * 16 * 64 * TOKENS * (TOKENS + 1) / 2
+    rowstat = b * h * s * 4  # lse or delta, f32
+    prod = 2 * b * h * d * s * (s + 1) / 2
     bounds = {"fwd": bound(4 * act + rowstat, 2 * prod),
               "dq": bound(6 * act + 2 * rowstat, 3 * prod),
               "dkdv": bound(6 * act + 2 * rowstat, 4 * prod)}
@@ -1920,28 +1967,20 @@ def check_train_attention(dev):
                   bound=bounds[key][0], by=bounds[key][1],
                   library=t["sdpa_fwd"] if key == "fwd" else None)
         for key in bounds}
-    log(f"K4 bounds per layer call (ms, bound by): {bounds}; SDPA "
-        f"forward {t['sdpa_fwd']} ms, SDPA backward (dq, dk, dv together) "
-        f"{t['sdpa_bwd']} ms")
-    flop = 2 * 2 * TRAIN_BATCH * 16 * TOKENS * (TOKENS + 1) / 2 * 64
-    log(f"K4 time, GPT-L training shape {list(gpt_l_shape)} bf16, per layer:"
-        f" forward {t['fwd']:.3f} ms (plain {t['plain_fwd']:.3f}), "
-        f"dq {t['dq']:.3f} ms, dk/dv {t['dkdv']:.3f} ms (plain backward "
-        f"{t['plain_bwd']:.3f}), forward + backward {t['fwd_bwd']:.3f} ms "
-        f"(plain {t['plain_fwd_bwd']:.3f}); causal QK^T + PV "
-        f"{flop / 1e9:.1f} GFLOP = {flop / t['fwd'] / 1e9:.1f} TFLOP/s of "
-        f"useful forward work")
     sdpa = {key: "n/a" if t[f"sdpa_{key}"] is None
             else f"{t[f'sdpa_{key}']:.4f}" for key in ("fwd", "bwd")}
-    log(f"K4 against the two-pass mma.sync design it replaced (0.596 "
-        f"forward, 0.667 dq, 1.138 dk/dv ms on an NVIDIA H100 80GB HBM3 at "
-        f"700 W, one call per pair of events) and against SDPA in this "
-        f"run: forward {t['fwd']:.4f} ms "
-        f"(bound {bounds['fwd'][0]:.4f}, SDPA {sdpa['fwd']}); dq "
-        f"{t['dq']:.4f} + dk/dv {t['dkdv']:.4f} = "
-        f"{t['dq'] + t['dkdv']:.4f} ms (bounds {bounds['dq'][0]:.4f} + "
-        f"{bounds['dkdv'][0]:.4f}, SDPA backward {sdpa['bwd']})")
-    return abs_err, t
+    log(f"K4 bounds per layer call at {list(shape)} (ms, bound by): "
+        f"{bounds}; SDPA forward {sdpa['fwd']} ms, SDPA backward (dq, dk, "
+        f"dv together) {sdpa['bwd']} ms")
+    log(f"K4 time, {label} {list(shape)} bf16 (v strided), per layer: "
+        f"forward {t['fwd']:.4f} ms (plain {t['plain_fwd']:.3f}, bound "
+        f"{bounds['fwd'][0]:.4f}, SDPA {sdpa['fwd']}), dq {t['dq']:.4f} ms, "
+        f"dk/dv {t['dkdv']:.4f} ms (plain backward {t['plain_bwd']:.3f}, "
+        f"SDPA backward {sdpa['bwd']}), forward + backward "
+        f"{t['fwd_bwd']:.4f} ms (plain {t['plain_fwd_bwd']:.3f}); causal "
+        f"QK^T + PV {2 * prod / 1e9:.1f} GFLOP = "
+        f"{2 * prod / t['fwd'] / 1e9:.1f} TFLOP/s of useful forward work")
+    return t
 
 
 def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
@@ -2016,11 +2055,7 @@ def run_train_step_vs_plain(dev):
     points, and that noise passes through 24 bf16 layers); f32: 1e-4 and
     1e-3 (f32 sums in another order through 24 layers)."""
     from llamagen_tpu_torch.config import gpt_config
-    from llamagen_tpu_torch.models import gpt
-    from llamagen_tpu_torch.ops import train_attention as ta
     from llamagen_tpu_torch.train import c2i
-    from llamagen_tpu_torch.train.train_state import (Optimizer,
-                                                      init_train_state)
     cfg = gpt_config("GPT-L", block_size=TOKENS, cls_token_num=1,
                      class_dropout_prob=0.0, token_dropout_p=0.0,
                      resid_dropout_p=0.0, ffn_dropout_p=0.0)
@@ -2030,6 +2065,20 @@ def run_train_step_vs_plain(dev):
                              device=dev),
         tokens=torch.randint(0, 16384, (TRAIN_BATCH, TOKENS), generator=g,
                              device=dev))
+    return step_vs_plain(dev, "GPT-L", cfg, batch,
+                         lambda dtype: c2i.make_train_step(
+                             compute_dtype=dtype))
+
+
+def step_vs_plain(dev, label, cfg, batch, make_step):
+    """One step of `make_step(dtype)` on a seeded model of `cfg` with a
+    random head, with K4 and with the plain attention, in bf16 and in f32
+    compute (the bounds of `run_train_step_vs_plain`). Parameters that get
+    no gradient (the t2i null caption with CFG dropout off) are left out."""
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.ops import train_attention as ta
+    from llamagen_tpu_torch.train.train_state import (Optimizer,
+                                                      init_train_state)
     worst = {}
     for dtype, (loss_bound, grad_bound) in ((torch.bfloat16, (1e-2, 5e-2)),
                                             (torch.float32, (1e-4, 1e-3))):
@@ -2041,7 +2090,7 @@ def run_train_step_vs_plain(dev):
                                             .Generator(device=dev)
                                             .manual_seed(6))
             state = init_train_state(model, Optimizer(model), use_ema=True)
-            step_fn = c2i.make_train_step(compute_dtype=dtype)
+            step_fn = make_step(dtype)
             saved = gpt.causal_attention_padded
             if plain:
                 gpt.causal_attention_padded = ta.causal_attention_ref
@@ -2054,15 +2103,19 @@ def run_train_step_vs_plain(dev):
                 gpt.causal_attention_padded = saved
             runs.append((m["loss"].item(), m["grad_norm"].item(), secs,
                          {n: p.grad.detach().clone()
-                          for n, p in model.named_parameters()}))
+                          for n, p in model.named_parameters()
+                          if p.grad is not None}))
             del state, model, step_fn
         (lk, nk, sk, gk), (lp, np_, sp, gp) = runs
+        if set(gk) != set(gp):
+            raise AssertionError("K4 and the plain attention gave "
+                                 "gradients to different parameters")
         rel = {n: ((gk[n].float() - gp[n].float()).norm()
                    / gp[n].float().norm().clamp_min(1e-30)).item()
                for n in gp}
         name = max(rel, key=rel.get)
-        log(f"one GPT-L training step, {str(dtype)[6:]} compute, K4 vs plain "
-            f"attention (dropout off): loss {lk:.6f} vs {lp:.6f} (|diff| "
+        log(f"one {label} training step, {str(dtype)[6:]} compute, K4 vs "
+            f"plain attention (dropout off): loss {lk:.6f} vs {lp:.6f} (|diff| "
             f"{abs(lk - lp):.3g}, bound {loss_bound:g}), grad norm {nk:.6f} "
             f"vs {np_:.6f}; worst relative gradient difference "
             f"{rel[name]:.3g} ({name}, bound {grad_bound:g}), median "
@@ -2074,6 +2127,279 @@ def run_train_step_vs_plain(dev):
         worst[dtype] = (abs(lk - lp), rel[name])
         del runs, gk, gp
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Phases 23-27: the tokenizer's encode side, t2i training
+# ---------------------------------------------------------------------------
+
+
+def vq_encoder_model(dev, dtype=torch.float32, seed=7):
+    """The whole VQ-16 (encoder and quantizer too) at full width, seeded
+    random weights."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.models import vq
+    return vq.init_weights(vq.VQModel(vq_config("VQ-16"), device=dev,
+                                      dtype=dtype, encoder=True),
+                           seed=seed).eval()
+
+
+def run_vq_encode(dev):
+    """VQ-16 encode at full width, 32 random 256 px images (16 x 16 codes
+    each). f32 (TF32 off: main() sets it for cuDNN too), timed; the ids of
+    the first VQ_CPU_IMAGES images equal the port's own f32 encode on the
+    CPU; bf16 (as the t2i training step runs it) timed, with the share of
+    its ids equal to f32's; the f32 encode -> decode round trip with finite
+    PSNR and SSIM (`eval/metrics.py`) and the codebook usage printed."""
+    import copy
+
+    from llamagen_tpu_torch.eval.metrics import (images_to_unit_range, psnr,
+                                                 ssim)
+    model = vq_encoder_model(dev)
+    g = torch.Generator(device=dev).manual_seed(71)
+    u8 = torch.randint(0, 256, (TRAIN_BATCH, 256, 256, 3), generator=g,
+                       device=dev, dtype=torch.uint8)
+    x = u8.float() / 127.5 - 1.0
+    xb = x.to(torch.bfloat16)
+    bf = copy.deepcopy(model).to(torch.bfloat16)
+    with torch.no_grad():
+        z_q, _, ids = model.encode(x)
+        rec = model.decode(z_q)
+        f32_ms = cuda_ms(lambda: model.encode(x), reps=3, calls=3)
+        bids = bf.encode(xb)[2]
+        bf16_ms = cuda_ms(lambda: bf.encode(xb), reps=3, calls=3)
+        cpu = copy.deepcopy(model).cpu()
+        t0 = time.time()
+        cpu_ids = cpu.encode(x[:VQ_CPU_IMAGES].cpu())[2]
+        cpu_s = time.time() - t0
+    torch.cuda.synchronize()
+    same_cpu = (cpu_ids == ids[:VQ_CPU_IMAGES].cpu()).sum().item()
+    share = (bids == ids).float().mean().item()
+    rec = rec.float().cpu().numpy()
+    orig = u8.cpu().numpy().astype(np.float32) / 255.0
+    ps = [psnr(a, images_to_unit_range(r)) for a, r in zip(orig, rec)]
+    ss = [ssim(a, images_to_unit_range(r)) for a, r in zip(orig, rec)]
+    usage = len(torch.unique(ids)) / model.cfg.codebook_size
+    n_cpu = cpu_ids.numel()
+    log(f"VQ-16 encode (full width, {TRAIN_BATCH} x 256 px -> 16 x 16 "
+        f"codes, random weights): f32 {f32_ms:.3f} ms a batch, bf16 "
+        f"{bf16_ms:.3f} ms; bf16 ids equal to f32's: {100 * share:.2f} %; "
+        f"card f32 ids equal to the CPU's f32 ids on {VQ_CPU_IMAGES} images: "
+        f"{same_cpu} of {n_cpu} (CPU encode {cpu_s:.1f} s)")
+    log(f"VQ-16 f32 round trip: PSNR mean {np.mean(ps):.4f} dB, SSIM mean "
+        f"{np.mean(ss):.4f} (random weights, noise images), codebook usage "
+        f"{usage:.4f} ({len(torch.unique(ids))} codes)")
+    if ids.shape != (TRAIN_BATCH, 16, 16) or rec.shape != (
+            TRAIN_BATCH, 256, 256, 3) or bids.shape != ids.shape:
+        raise AssertionError("VQ encode / decode shapes are wrong")
+    if same_cpu != n_cpu:
+        raise AssertionError("the card's f32 ids differ from the CPU's")
+    if not (np.isfinite(rec).all() and np.isfinite(ps).all()
+            and np.isfinite(ss).all()):
+        raise AssertionError("the round trip is not finite")
+    return {"f32_ms": f32_ms, "bf16_ms": bf16_ms, "share": share,
+            "usage": usage}
+
+
+def run_vq_cli_batches(dev):
+    """The batch functions of the tokenizer CLIs on seeded uint8 crops
+    with the CLIs' f32 VQ-16: `extract_codes.encode_batch` in the plain
+    (16 crops), flip (8 images x 2) and ten-crop (4 images of 281 px x 10)
+    layouts, int16 codes in range; `reconstruction_vq.roundtrip_batch` +
+    `score` on 8 crops, finite."""
+    from llamagen_tpu_torch.cli import extract_codes, reconstruction_vq
+    model = vq_encoder_model(dev)
+    rng = np.random.RandomState(72)
+    imgs = list(rng.randint(0, 256, (16, 256, 256, 3), dtype=np.uint8))
+    big = list(rng.randint(0, 256, (4, 281, 281, 3), dtype=np.uint8))
+    out = {
+        "plain": extract_codes.encode_batch(model, imgs, 1),
+        "flip": extract_codes.encode_batch(
+            model, [c for a in imgs[:8]
+                    for c in extract_codes.crops_of(a, 256, "flip")], 2),
+        "ten_crop": extract_codes.encode_batch(
+            model, [c for a in big
+                    for c in extract_codes.crops_of(a, 256, "ten_crop")],
+            10)}
+    want = {"plain": (16, 256), "flip": (8, 2, 256),
+            "ten_crop": (4, 10, 256)}
+    for key, codes in out.items():
+        if codes.shape != want[key] or codes.dtype != np.int16 \
+                or codes.min() < 0 or codes.max() >= 16384:
+            raise AssertionError(f"extract_codes {key}: {codes.shape} "
+                                 f"{codes.dtype}")
+    same = (out["flip"][:, 0] == out["plain"][:8]).mean()
+    t0 = time.time()
+    rec, idx = reconstruction_vq.roundtrip_batch(model, imgs[:8])
+    ps, ss, u8 = reconstruction_vq.score(imgs[:8], rec)
+    secs = time.time() - t0
+    log(f"tokenizer CLI batch functions: extract_codes shapes "
+        f"{ {k: v.shape for k, v in out.items()} } int16; flip layout's "
+        f"first crops equal the plain batch's codes: {100 * same:.2f} %; "
+        f"reconstruction_vq round trip of 8 crops + scores {secs:.2f} s, "
+        f"PSNR {np.mean(ps):.4f}, SSIM {np.mean(ss):.4f}")
+    if rec.shape != (8, 256, 256, 3) or rec.dtype != np.float32 \
+            or idx.shape != (8, 16, 16) or u8.dtype != np.uint8 \
+            or not (np.isfinite(rec).all() and np.isfinite(ps).all()
+                    and np.isfinite(ss).all()):
+        raise AssertionError("reconstruction_vq's round trip is wrong")
+
+
+def t2i_train_batch(dev, step, dtype=torch.float32):
+    """One t2i training batch: 32 random 256 px images, 120 x 2048 caption
+    features left-padded by 0 ... 119 rows (a pad each sample), sample 1
+    with valid 0."""
+    from llamagen_tpu_torch.train import t2i
+    g = torch.Generator(device=dev).manual_seed(300 + step)
+    images = torch.rand(TRAIN_BATCH, 256, 256, 3, generator=g,
+                        device=dev) * 2 - 1
+    pads = [(j * 119 // (TRAIN_BATCH - 1) + 7 * step) % T2I_T
+            for j in range(TRAIN_BATCH)]
+    caps, masks = t2i_captions(dev, pads, 310 + step, dtype)
+    valid = torch.ones(TRAIN_BATCH, device=dev)
+    valid[1] = 0.0
+    return t2i.T2IBatch(images, caps, masks.int(), valid)
+
+
+def t2i_train_cfg(**kw):
+    from llamagen_tpu_torch.config import gpt_config
+    return gpt_config("GPT-XL", block_size=256, cls_token_num=T2I_T,
+                      model_type="t2i", caption_dim=T2I_CAPTION, **kw)
+
+
+def run_t2i_train(dev, steps=TRAIN_STEPS):
+    """GPT-XL t2i training through `train/t2i.py::build_trainer`: 256 px,
+    120 caption rows, batch 32, bf16 compute, f32 master weights, AdamW +
+    EMA, full remat, the JAX CLI's dropouts (class, token, resid, ffn
+    0.1), the frozen VQ-16 in bf16 encoding the images inside the step.
+    The K4 counters must read 2 * 36 * N (forward) and 36 * N (dq, dk/dv);
+    the first loss ln 16384 (the zeroed head), every loss and grad norm
+    finite; the VQ weights bit-unchanged with no .grad."""
+    from llamagen_tpu_torch.ops import train_attention as ta
+    from llamagen_tpu_torch.train import t2i
+    kernels = (ta.train_attention_fwd, ta.train_attention_dq,
+               ta.train_attention_dkdv)
+    cfg = t2i_train_cfg(class_dropout_prob=0.1, token_dropout_p=0.1,
+                        resid_dropout_p=0.1, ffn_dropout_p=0.1)
+    vq_model = vq_encoder_model(dev, torch.bfloat16)
+    before = {k: v.clone() for k, v in vq_model.state_dict().items()}
+    state, step_fn = t2i.build_trainer(cfg, vq_model, dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    batches = [t2i_train_batch(dev, i) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in kernels:
+        f.launches = 0
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        t0 = time.time()
+        state, m = step_fn(state, batches[i % 2], 0)
+        losses.append(m["loss"].item())  # waits for the step
+        norms.append(m["grad_norm"].item())
+        times.append(time.time() - t0)
+    launches = {f.__name__: f.launches for f in kernels}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_s = statistics.median(times[2:])
+    positions = TRAIN_BATCH * (T2I_T + 255)
+    mfu = 6 * n_params * positions / step_s / H100_BF16_FLOPS
+    log(f"t2i training (GPT-XL 256 px, {n_params / 1e6:.1f}M params, 120 "
+        f"caption rows x 2048, batch {TRAIN_BATCH}, {steps} steps, bf16 "
+        f"compute, full remat, dropouts 0.1, frozen bf16 VQ-16 encode in the "
+        f"step): median step after warm-up {step_s:.4f} s = "
+        f"{TRAIN_BATCH / step_s:.2f} samples/s; peak memory {peak:.2f} GiB; "
+        f"MFU {100 * mfu:.2f} % (6 * params * {TRAIN_BATCH} * 375 positions "
+        f"/ step time / 989 TFLOP/s; the VQ encode and attention not "
+        f"counted); first two steps {times[0]:.2f}, {times[1]:.2f} s")
+    log(f"t2i training losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}; K4 launches {launches}")
+    if abs(losses[0] - math.log(16384)) > 1e-3:
+        raise AssertionError(f"first loss {losses[0]} is not ln 16384")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError("a loss or grad norm is not finite")
+    n_layer = cfg.n_layer
+    want = {"train_attention_fwd": 2 * n_layer * steps,
+            "train_attention_dq": n_layer * steps,
+            "train_attention_dkdv": n_layer * steps}
+    if launches != want:
+        raise AssertionError(f"K4 launches {launches}, expected {want}")
+    if any(p.grad is not None for p in vq_model.parameters()) or not all(
+            torch.equal(v, before[k])
+            for k, v in vq_model.state_dict().items()):
+        raise AssertionError("the frozen VQ changed or got gradients")
+    log("t2i training: the VQ weights are bit-unchanged, no .grad")
+    del state, step_fn, vq_model, batches
+    torch.cuda.empty_cache()
+    return launches, {"step_s": step_s, "peak_gib": peak, "mfu": mfu}
+
+
+def run_t2i_step_vs_plain(dev):
+    """One t2i training step with K4 and with the plain attention at
+    GPT-XL width cut to 4 layers (dropout off, a random head, the batch of
+    `t2i_train_batch`), the frozen VQ-16 in the compute dtype; the bounds
+    of `run_train_step_vs_plain`."""
+    from llamagen_tpu_torch.config import replace
+    from llamagen_tpu_torch.train import t2i
+    cfg = replace(t2i_train_cfg(class_dropout_prob=0.0, token_dropout_p=0.0,
+                                resid_dropout_p=0.0, ffn_dropout_p=0.0),
+                  n_layer=4)
+    vq32 = vq_encoder_model(dev)
+    vqs = {torch.float32: vq32,
+           torch.bfloat16: vq_encoder_model(dev, torch.bfloat16)}
+    worst = step_vs_plain(dev, "GPT-XL t2i (4 layers)", cfg,
+                          t2i_train_batch(dev, 0),
+                          lambda dtype: t2i.make_train_step(
+                              vqs[dtype], compute_dtype=dtype))
+    del vqs, vq32
+    torch.cuda.empty_cache()
+    return worst
+
+
+def run_t2i_train_cli(dev, steps=3):
+    """`python -m llamagen_tpu_torch.cli.train_t2i --synthetic-steps 3
+    --device cuda` at its defaults (GPT-XL 256 px, global batch 256, the
+    synthetic caption window of 8 rows x 64), in this process: K4 counters
+    2 * 36 * 3 and 36 * 3, finite losses, the first ln 16384, the final
+    checkpoint written."""
+    from llamagen_tpu_torch.cli import train_t2i
+    from llamagen_tpu_torch.ops import train_attention as ta
+    kernels = (ta.train_attention_fwd, ta.train_attention_dq,
+               ta.train_attention_dkdv)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for f in kernels:
+            f.launches = 0
+        t0 = time.time()
+        state = train_t2i.main(["--synthetic-steps", str(steps),
+                                "--device", "cuda", "--log-every", "1",
+                                "--results-dir", tmp])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = {f.__name__: f.launches for f in kernels}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        recs = [json.loads(line)
+                for line in open(os.path.join(tmp, "metrics.jsonl"))]
+        recs = [r for r in recs if "loss" in r]
+        ckpt = os.path.join(tmp, "checkpoints", f"step_{steps:08d}.pt")
+        ckpt_gb = os.path.getsize(ckpt) / 1e9 if os.path.exists(ckpt) else 0
+        n_layer = state.model.cfg.n_layer
+        del state
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in recs]
+    log(f"CLI train_t2i (defaults: GPT-XL 256, batch 256, {steps} synthetic "
+        f"steps): {secs:.1f} s in all, steps/s "
+        f"{[round(r['steps_per_sec'], 3) for r in recs]}, "
+        f"peak memory {peak:.2f} GiB, losses "
+        f"{[round(x, 4) for x in losses]}, K4 launches {launches}; final "
+        f"checkpoint {ckpt_gb:.2f} GB")
+    want = {"train_attention_fwd": 2 * n_layer * steps,
+            "train_attention_dq": n_layer * steps,
+            "train_attention_dkdv": n_layer * steps}
+    if launches != want or n_layer != 36:
+        raise AssertionError(f"K4 launches {launches}, expected {want}")
+    if len(losses) != steps or not np.isfinite(losses).all() \
+            or abs(losses[0] - math.log(16384)) > 1e-3 or ckpt_gb == 0:
+        raise AssertionError("train_t2i's losses or checkpoint are wrong")
 
 
 def main():
@@ -2121,7 +2447,8 @@ def main():
     phase("greedy f32 speculative == generate", run_spec_greedy_f32)
     phase("greedy f32 speculative == generate, GPT-3B width",
           lambda d: run_spec_greedy_f32(d, "GPT-3B", n_layer=2))
-    k4_err, k4_t = phase("K4 checks", check_train_attention)
+    k4_err, k4_t, k4_t2i_err, k4_t2i_t = phase("K4 checks",
+                                               check_train_attention)
     k4_launches, _ = phase("training CLI", run_train_cli)
     phase("training CLI, remat save_attn",
           lambda d: run_train_cli(d, "save_attn", 4))
@@ -2136,6 +2463,11 @@ def main():
     t2i_spec = phase("t2i speculative path", run_t2i_speculative)
     phase("greedy f32 t2i speculative == generate", run_t2i_spec_greedy_f32)
     phase("t2i sampling CLI", run_t2i_cli)
+    phase("VQ-16 encode, full width", run_vq_encode)
+    phase("tokenizer CLIs' batch functions", run_vq_cli_batches)
+    t2i_train_launches, _ = phase("t2i training, GPT-XL", run_t2i_train)
+    phase("t2i training step vs plain", run_t2i_step_vs_plain)
+    phase("t2i training CLI", run_t2i_train_cli)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):
@@ -2196,6 +2528,14 @@ def main():
               "chunk_attention.cu",
               "llamagen_tpu/ops/chunk_attention.py:315",
               t2i_spec["chunk_decode_attention"], k5_err, k5_t["5 t2i"]),
+        # the t2i training slice: GPT-XL, 20 heads, S 375, v strided
+        *(entry(f"{name} [t2i training: GPT-XL, B 32, S 375, 20 heads]", k4,
+                f"llamagen_tpu/ops/train_attention.py:{line}",
+                t2i_train_launches[name], k4_t2i_err[key],
+                k4_t2i_t["record"][key])
+          for name, key, line in (("train_attention_fwd", "fwd", 195),
+                                  ("train_attention_dq", "dq", 213),
+                                  ("train_attention_dkdv", "dkdv", 213))),
     ]}
     print(smi)
     print(json.dumps(record))

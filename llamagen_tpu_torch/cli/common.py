@@ -84,15 +84,18 @@ def load_gpt(gpt_ckpt: Optional[str], gpt_model: str, image_size: int,
 
 def load_vq(vq_ckpt: Optional[str], vq_model: str, codebook_size: int,
             codebook_embed_dim: int, dtype: torch.dtype,
-            device: torch.device) -> vq_lib.VQModel:
-    """VQ decoder from a `.pt` state dict, or seeded random weights."""
+            device: torch.device, encoder: bool = False) -> vq_lib.VQModel:
+    """VQ tokenizer from a `.pt` state dict, or seeded random weights: the
+    decode half (what the sampling CLIs need; a decode-only checkpoint
+    loads), or with `encoder` the whole model."""
     cfg = vq_config(vq_model, codebook_size=codebook_size,
                     codebook_embed_dim=codebook_embed_dim)
-    model = vq_lib.VQModel(cfg, device=device, dtype=dtype)
+    model = vq_lib.VQModel(cfg, device=device, dtype=dtype, encoder=encoder)
     if vq_ckpt is None:
         vq_lib.init_weights(model, seed=0)
     else:
-        _load_into(model, vq_lib.decode_half(_load(vq_ckpt)))
+        sd = _load(vq_ckpt)
+        _load_into(model, sd if encoder else vq_lib.decode_half(sd))
     return model.eval()
 
 

@@ -592,6 +592,22 @@ def _train_block(layer: TransformerBlock, h: torch.Tensor,
     return h + ffn
 
 
+def _leading_zero_rows(cond_emb: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, s, 1] bool: the leading run of all-zero condition rows of each
+    sample (a t2i caption's left pad), False past it.
+
+    Such rows stay exactly 0 through every layer for any weights: each
+    attends only to rows of the run (the mask is causal), whose values are
+    0, and every projection is bias-free. So their activation gradient adds
+    exactly 0 to every parameter gradient (it only ever meets their zero
+    inputs), yet it grows by RMSNorm's 1 / sqrt(eps) ~ 316 at each norm it
+    crosses and overflows f32 within ~20-36 layers, where 0 * inf makes the
+    weight gradients NaN (JAX's forward_train does so at GPT-XL depth).
+    `forward_train` stops the gradient at these rows before each layer."""
+    zero = (cond_emb == 0).all(dim=-1).int().cumprod(dim=1).bool()
+    return F.pad(zero, (0, s - zero.shape[1]))[..., None]
+
+
 def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
                   targets: Optional[torch.Tensor] = None,
                   valid: Optional[torch.Tensor] = None,
@@ -602,10 +618,12 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Teacher-forced full-sequence forward (JAX `gpt.forward_train`).
 
-    cond: [B] class labels; idx: [B, L] token ids (callers pass
-    tokens[:, :-1]); targets: [B, block_size] ids for the CE loss; valid:
-    optional [B] sample weights. Returns (logits [B, S, V] f32 from the
-    last condition position on, loss or None).
+    cond: [B] class labels (c2i) or [B, T, caption_dim] caption features
+    (t2i; masked rows already zeroed: the attention stays causal); idx:
+    [B, L] token ids (callers pass tokens[:, :-1]); targets: [B,
+    block_size] ids for the CE loss; valid: optional [B] sample weights.
+    Returns (logits [B, S, V] f32 from the last condition position on,
+    loss or None).
 
     Dropout (class, token, resid/ffn, drop-path, attention) runs when
     `train` and a `generator` is given: the generator (any device) draws
@@ -614,6 +632,9 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
     remat: False; "full" to recompute each layer in the backward
     (`torch.utils.checkpoint`); or "save_attn" to recompute all but the
     attention kernel's output (`_save_attention`).
+
+    t2i: the gradient stops at the left-pad rows (`_leading_zero_rows`):
+    the values and the parameter gradients are JAX's, finite at any depth.
     """
     cfg = model.cfg
     if remat not in (False, "full", "save_attn"):
@@ -638,7 +659,11 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
     rates = [None] * cfg.n_layer
     if seeds[2] is not None and cfg.drop_path_rate > 0:
         rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.n_layer).tolist()
+    pads = _leading_zero_rows(cond_emb, h.shape[1]) \
+        if cfg.model_type == "t2i" else None
     for layer, seed, rate in zip(model.layers, seeds[2:], rates):
+        if pads is not None:
+            h = torch.where(pads, h.detach(), h)
         if remat:
             h = checkpoint(_train_block, layer, h, freqs, cfg, seed, rate,
                            use_reentrant=False, **ckpt)
