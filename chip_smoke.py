@@ -132,6 +132,23 @@ Phases, each of which raises on a failed check (exit code != 0):
 27. The t2i training CLI (`llamagen_tpu_torch.cli.train_t2i
    --synthetic-steps 3`) at its defaults (GPT-XL, batch 256): counters
    2 * 36 * 3 and 36 * 3, the checkpoint written.
+28. VQ-GAN tokenizer training through `train/vq.py::build_trainer`:
+   VQ-16 at 256 px, batch 32, bf16 compute over f32 weights, per-block
+   remat, a full-width random LPIPS, PatchGAN, hinge, l2, disc_start 0,
+   EMA, 10 steps on seeded random images; then StyleGAN with the adaptive
+   weight and dropout 0.1 for 3 steps. Every metric finite, the step
+   counts, the adaptive weight finite and positive, the usage window
+   shifted by each step's 8,192 ids, the EMA moved; s/step, img/s, peak
+   memory, the first and last losses. The path runs no kernel of the port.
+29. One f32 VQ-GAN step (TF32 off) at narrow width (VQ-8, ch 32, 32 px,
+   batch 4, LPIPS, PatchGAN, the adaptive weight, dropout 0) from the same
+   weights on the card and on the CPU: metrics, gradients and updated
+   parameters within `VQ_CPU_BOUNDS`, the usage windows (the ids) equal.
+30. The VQ-GAN CLI (`llamagen_tpu_torch.cli.train_vq --synthetic-steps 3
+   --disc-start 0`) at its defaults (VQ-16, 256 px, batch 128, bf16,
+   remat), LPIPS loaded from random state dicts in torchvision's and the
+   reference's key layouts; the checkpoint loads into `VQModel(cfg,
+   encoder=True)`; its log lines and peak memory.
 
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
@@ -187,6 +204,15 @@ T2I_PADS = (0, 60, 100, 119)
 T2I_PAD_CASES = (0, 60, 96, 100, 119)  # the kernel checks' pads
 T2I_ENGINE_PAIRS, T2I_ENGINE_REQUESTS, T2I_ENGINE_CHUNK = 8, 24, 64
 T2I_ADMIT_ROWS = 2 * 8 * T2I_T
+# VQ-GAN training: VQ-16 at 256 px, batch 32 (the CLI's is 128)
+VQ_GAN_BATCH, VQ_GAN_STEPS, VQ_GAN_STYLEGAN_STEPS = 32, 10, 3
+# card vs CPU f32 step: metrics (relative, absolute); gradients, as a share
+# of the model's largest (f32 rounding puts a (leaky) ReLU input within a
+# few ulps of 0 on the other slope now and then, and batch means of
+# cancelling terms amplify it; tests/test_torch_train_vq.py measures it);
+# parameters within 1 % of lr where the gradient is at least 10x that
+# share of the largest, 2 lr (Adam's bound) elsewhere
+VQ_CPU_BOUNDS = {"metric": (3e-4, 1e-6), "vq": 5e-3, "disc": 5e-2}
 GPT_L_MATMULS = {"wqkv": (1024, 3072), "wo": (1024, 1024),
                  "w1": (1024, 2816), "w3": (1024, 2816), "w2": (2816, 1024)}
 
@@ -2402,6 +2428,232 @@ def run_t2i_train_cli(dev, steps=3):
         raise AssertionError("train_t2i's losses or checkpoint are wrong")
 
 
+def vq_gan_lpips(dev, seed=9):
+    """A full-width LPIPS (VGG16 + heads) with seeded random weights."""
+    from llamagen_tpu_torch.models import lpips
+    return lpips.init_weights(lpips.LPIPS(device=dev), seed=seed)
+
+
+def vq_gan_images(dev, step, b=VQ_GAN_BATCH, size=256):
+    g = torch.Generator(device=dev).manual_seed(500 + step)
+    return torch.rand(b, size, size, 3, generator=g, device=dev) * 2 - 1
+
+
+def vq_gan_run(dev, label, cfg, loss_cfg, steps, batch=VQ_GAN_BATCH):
+    """`steps` VQ-GAN steps, bf16 over f32 weights, remat, EMA: times,
+    peak memory and the checks of phase 28."""
+    from llamagen_tpu_torch.train import vq as vq_train
+    size = loss_cfg.image_size
+    state, step_fn = vq_train.build_trainer(
+        cfg, loss_cfg, dev, use_ema=True, lpips=vq_gan_lpips(dev),
+        compute_dtype=torch.bfloat16, remat=True)
+    ema0 = {k: v.clone() for k, v in state.ema.items()}
+    batches = [vq_gan_images(dev, i, batch, size) for i in range(2)]
+    n_ids = batch * (size // cfg.downsample_factor) ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, hist = [], []
+    for i in range(steps):
+        before = state.usage_window.clone()
+        t0 = time.time()
+        state, m = step_fn(state, batches[i % 2])
+        m = {k: v.item() for k, v in m.items()}  # waits for the step
+        times.append(time.time() - t0)
+        hist.append(m)
+        w = state.usage_window
+        if not torch.equal(w[:-n_ids], before[n_ids:]) or not (
+                0 <= int(w.min()) and int(w.max()) < cfg.codebook_size):
+            raise AssertionError(f"{label}: the usage window did not shift "
+                                 f"by the step's {n_ids} ids")
+        usage = len(torch.unique(w)) / cfg.codebook_size
+        if abs(usage - m["codebook_usage"]) > 1e-6:
+            raise AssertionError(f"{label}: usage {m['codebook_usage']} is "
+                                 f"not the window's {usage}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_s = statistics.median(times[2:]) if steps > 3 else times[-1]
+    moved = max((state.ema[k] - v).abs().max().item()
+                for k, v in ema0.items())
+    keys = ("gen_loss", "rec_loss", "perceptual_loss", "gen_adv_loss",
+            "disc_loss", "disc_adaptive_weight", "codebook_usage")
+    log(f"{label}: {steps} steps, median step {step_s:.4f} s = "
+        f"{batch / step_s:.2f} img/s, first two steps "
+        f"{times[0]:.2f}, {times[1]:.2f} s; peak memory {peak:.2f} GiB; "
+        f"EMA moved by up to {moved:.3g}")
+    for tag, m in (("first", hist[0]), ("last", hist[-1])):
+        log(f"{label}: {tag} step " + ", ".join(
+            f"{k} {m[k]:.5g}" for k in keys))
+    if not all(np.isfinite(v) for m in hist for v in m.values()):
+        raise AssertionError(f"{label}: a metric is not finite")
+    if state.step != steps or moved <= 0:
+        raise AssertionError(f"{label}: step {state.step}, EMA moved "
+                             f"{moved}")
+    if loss_cfg.disc_adaptive_weight and not all(
+            0 < m["disc_adaptive_weight"] < 1e4 for m in hist):
+        raise AssertionError(f"{label}: adaptive weight out of (0, 1e4)")
+    if not all(m["disc_loss"] > 0 and m["perceptual_loss"] > 0
+               for m in hist):
+        raise AssertionError(f"{label}: a loss term is not live")
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    return {"step_s": step_s, "img_s": batch / step_s, "peak_gib": peak}
+
+
+def run_vq_gan_train(dev, name="VQ-16", size=256, batch=VQ_GAN_BATCH,
+                     **cfg_kw):
+    """VQ-16 VQ-GAN training at 256 px, batch 32: PatchGAN, hinge, l2,
+    disc_start 0 (every term and both updates live), 10 steps; then
+    StyleGAN with the adaptive weight and dropout 0.1, 3 steps."""
+    from llamagen_tpu_torch.config import replace, vq_config
+    from llamagen_tpu_torch.train import vq as vq_train
+    cfg = vq_config(name, **cfg_kw)
+    out = vq_gan_run(dev, f"VQ-GAN ({name} {size} px, PatchGAN, batch "
+                          f"{batch}, bf16, remat)", cfg,
+                     vq_train.VQLossConfig(disc_start=0, image_size=size),
+                     VQ_GAN_STEPS, batch)
+    out["stylegan"] = vq_gan_run(
+        dev, "VQ-GAN (StyleGAN, adaptive weight, dropout 0.1)",
+        replace(cfg, dropout_p=0.1),
+        vq_train.VQLossConfig(disc_start=0, disc_type="stylegan",
+                              disc_adaptive_weight=True, image_size=size),
+        VQ_GAN_STYLEGAN_STEPS, batch)
+    return out
+
+
+def _vq_grad_check(label, mod_a, mod_b, share, lr):
+    """Gradients of mod_a (the card) against mod_b (the CPU) within
+    `share` of mod_b's largest; parameters within 1 % of lr where the
+    gradient is at least 10 x share of the largest, 2 lr elsewhere."""
+    ref = dict(mod_b.named_parameters())
+    gmax = max(p.grad.abs().max().item() for p in ref.values())
+    worst = [0.0, 0.0]
+    for name, p in mod_a.named_parameters():
+        g, r = p.grad.cpu(), ref[name].grad
+        worst[0] = max(worst[0], (g - r).abs().max().item() / gmax)
+        diff = (p.detach().cpu() - ref[name].detach()).abs()
+        big = r.abs() >= 10 * share * gmax
+        if big.any():
+            worst[1] = max(worst[1], diff[big].max().item() / lr)
+        if diff.max().item() > 2 * lr * 1.001:
+            raise AssertionError(f"{label} {name}: moved {diff.max():.3g}")
+    if worst[0] > share or worst[1] > 1e-2:
+        raise AssertionError(f"{label}: gradient {worst[0]:.3g} of the "
+                             f"largest, parameters {worst[1]:.3g} lr")
+    return worst
+
+
+def run_vq_gan_vs_cpu(dev):
+    """One f32 VQ-GAN step at narrow width from the same weights on the
+    card and on the CPU (TF32 off): every metric, gradient and updated
+    parameter within VQ_CPU_BOUNDS; the usage windows (the step's ids)
+    equal."""
+    import copy
+
+    from llamagen_tpu_torch.config import replace, vq_config
+    from llamagen_tpu_torch.train import vq as vq_train
+    cfg = replace(vq_config("VQ-8"), ch=32, z_channels=64, codebook_size=64,
+                  codebook_embed_dim=4)
+    loss_cfg = vq_train.VQLossConfig(disc_start=0, disc_adaptive_weight=True,
+                                     image_size=32)
+    cpu = torch.device("cpu")
+    lp = vq_gan_lpips(cpu)
+    x = vq_gan_images(cpu, 0, b=4, size=32)
+    out, weights = [], None
+    for d in (cpu, dev):
+        state, step_fn = vq_train.build_trainer(
+            cfg, loss_cfg, d, lpips=copy.deepcopy(lp).to(d), seed=3)
+        if weights is None:
+            weights = [copy.deepcopy(m.state_dict())
+                       for m in (state.model, state.disc)]
+        else:  # the CPU's initial weights
+            state.model.load_state_dict(weights[0])
+            state.disc.load_state_dict(weights[1])
+        t0 = time.time()
+        state, m = step_fn(state, x.to(d))
+        out.append((state, {k: v.item() for k, v in m.items()},
+                    time.time() - t0))
+    (cs, cm, ct), (gs, gm, gt) = out
+    rel, atol = VQ_CPU_BOUNDS["metric"]
+    worst_m = max(abs(gm[k] - v) / (abs(v) + atol / rel)
+                  for k, v in cm.items())
+    grads = {"vq": _vq_grad_check("VQ", gs.model, cs.model,
+                                  VQ_CPU_BOUNDS["vq"], 1e-4),
+             "disc": _vq_grad_check("discriminator", gs.disc, cs.disc,
+                                    VQ_CPU_BOUNDS["disc"], 1e-4)}
+    same_ids = torch.equal(gs.usage_window.cpu(), cs.usage_window)
+    log(f"VQ-GAN f32 step, card vs CPU (VQ-8 ch 32, 32 px, batch 4, LPIPS, "
+        f"PatchGAN, adaptive weight): metrics within {worst_m:.3g} of "
+        f"{rel} relative; gradients / parameter updates VQ "
+        f"{grads['vq'][0]:.3g} of the largest / {grads['vq'][1]:.3g} lr, "
+        f"discriminator {grads['disc'][0]:.3g} / {grads['disc'][1]:.3g} lr; "
+        f"ids equal: {same_ids}; card step {gt:.2f} s, CPU {ct:.2f} s")
+    if worst_m > 1 or not same_ids:
+        raise AssertionError("the card's f32 VQ-GAN step differs from the "
+                             "CPU's")
+    return grads
+
+
+def _lpips_files(tmp):
+    """Random LPIPS weights written as a torchvision vgg16 state dict
+    (`features.{i}`) and the reference's `vgg.pth` heads."""
+    from llamagen_tpu_torch.models import lpips
+    sd = vq_gan_lpips(torch.device("cpu"), seed=5).state_dict()
+    vgg = {f"features.{k.split('.', 3)[2]}.{k.split('.', 3)[3]}": v
+           for k, v in sd.items() if k.startswith("net.")}
+    assert len(vgg) == 2 * len(lpips.VGG16_CONVS)
+    paths = (os.path.join(tmp, "vgg16.pth"), os.path.join(tmp, "vgg.pth"))
+    torch.save(vgg, paths[0])
+    torch.save({k: v for k, v in sd.items() if k.startswith("lin")},
+               paths[1])
+    return paths
+
+
+def run_vq_gan_cli(dev, steps=3, args=()):
+    """`python -m llamagen_tpu_torch.cli.train_vq --synthetic-steps 3
+    --disc-start 0` at its defaults (VQ-16, 256 px, batch 128, bf16,
+    remat; `args` appended) with LPIPS from files, in this process: finite
+    metrics, the checkpoint loads into VQModel(cfg, encoder=True)."""
+    from llamagen_tpu_torch.cli import train_vq
+    from llamagen_tpu_torch.models import vq
+    from llamagen_tpu_torch.utils.convert import load_torch_state_dict
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        vgg, lins = _lpips_files(tmp)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        state = train_vq.main(["--synthetic-steps", str(steps),
+                               "--disc-start", "0", "--log-every", "1",
+                               "--vgg-weights", vgg, "--lpips-lins", lins,
+                               "--results-dir", tmp, *args])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        cfg = state.model.cfg
+        del state
+        torch.cuda.empty_cache()
+        for line in open(os.path.join(tmp, "log.txt")):
+            log(f"  train_vq: {line.rstrip()}")
+        recs = [json.loads(line)
+                for line in open(os.path.join(tmp, "metrics.jsonl"))]
+        recs = [r for r in recs if "gen_loss" in r]
+        ckpt = os.path.join(tmp, "checkpoints", f"step_{steps:08d}.pt")
+        tok = vq.VQModel(cfg, encoder=True)
+        tok.load_state_dict(load_torch_state_dict(ckpt))  # every key
+        n = sum(p.numel() for p in tok.parameters())
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+        del tok
+    torch.cuda.empty_cache()
+    log(f"CLI train_vq (defaults: VQ-16 256 px, batch 128, bf16, remat, "
+        f"{steps} synthetic steps, LPIPS from files): {secs:.1f} s in all, "
+        f"img/s {[round(r['samples_per_sec'], 2) for r in recs]}, peak "
+        f"memory {peak:.2f} GiB; checkpoint {ckpt_gb:.2f} GB loads into "
+        f"VQModel(encoder=True) ({n / 1e6:.1f}M params)")
+    if len(recs) != steps or not all(
+            np.isfinite(v) for r in recs for v in r.values()
+            if isinstance(v, float)) or recs[-1]["disc_loss"] <= 0:
+        raise AssertionError("train_vq's metrics are wrong")
+    return {"peak_gib": peak, "img_s": recs[-1]["samples_per_sec"]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -2468,6 +2720,9 @@ def main():
     t2i_train_launches, _ = phase("t2i training, GPT-XL", run_t2i_train)
     phase("t2i training step vs plain", run_t2i_step_vs_plain)
     phase("t2i training CLI", run_t2i_train_cli)
+    phase("VQ-GAN training, VQ-16", run_vq_gan_train)
+    phase("VQ-GAN f32 step, card vs CPU", run_vq_gan_vs_cpu)
+    phase("VQ-GAN training CLI", run_vq_gan_cli)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):

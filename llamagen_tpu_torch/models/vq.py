@@ -10,15 +10,24 @@ eps 1e-6) computes in f32; the quantizer's distances, losses and
 straight-through estimator too. `VQModel(cfg)` holds the decode half only
 (what sampling needs, loaded from `decode_half`); `VQModel(cfg,
 encoder=True)` the whole model.
+
+Convolutions compute in their input's dtype (`Conv2d` casts its weight
+and bias at each call, as JAX casts every kernel), so a bf16 forward runs
+over f32 master weights (VQ-GAN training). For training, `remat`
+checkpoints every residual and attention block (`torch.utils.checkpoint`,
+non-reentrant), and each residual block draws its dropout mask from a
+fresh generator seeded with a seed drawn before the block loop: a
+recomputed block draws the same mask, as JAX's `fold_in(rng, i)` keys do.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from llamagen_tpu_torch.config import VQConfig
 
@@ -37,14 +46,41 @@ class GroupNorm(nn.GroupNorm):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
-def _conv3(cin: int, cout: int, **kw) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, **kw)
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` in its input's dtype: the weight and bias are cast to
+    x's dtype at each call (a no-op when they already are)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def _conv3(cin: int, cout: int, **kw) -> Conv2d:
+    return Conv2d(cin, cout, 3, padding=1, **kw)
+
+
+def _block_seeds(n: int, generator: Optional[torch.Generator]
+                 ) -> List[Optional[int]]:
+    """One dropout seed per residual block, drawn from `generator` before
+    the blocks run (None each without a generator)."""
+    if generator is None:
+        return [None] * n
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def maybe_checkpoint(remat: bool, fn, *args):
+    """fn(*args), checkpointed (non-reentrant) with `remat`."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class ResnetBlock(nn.Module):
-    """Pre-norm residual conv block. With a `generator` (training) and
+    """Pre-norm residual conv block. With a `seed` (training) and
     `dropout_p` > 0, dropout between the second swish and conv2, the
-    upstream placement (JAX `resnet_block`)."""
+    upstream placement (JAX `resnet_block`), its mask drawn from a fresh
+    generator seeded with `seed` on x's device."""
 
     def __init__(self, cin: int, cout: int, dropout_p: float = 0.0, **kw):
         super().__init__()
@@ -53,17 +89,18 @@ class ResnetBlock(nn.Module):
         self.conv1 = _conv3(cin, cout, **kw)
         self.norm2 = GroupNorm(cout, **kw)
         self.conv2 = _conv3(cout, cout, **kw)
-        self.nin_shortcut = nn.Conv2d(cin, cout, 1, **kw) \
+        self.nin_shortcut = Conv2d(cin, cout, 1, **kw) \
             if cin != cout else None
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                seed: Optional[int] = None) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
         h = F.silu(self.norm2(h))
         p = self.dropout_p
-        if generator is not None and p > 0:
-            keep = torch.rand(h.shape, generator=generator,
-                              device=h.device) < 1.0 - p
+        if seed is not None and p > 0:
+            g = torch.Generator(device=h.device).manual_seed(seed)
+            keep = torch.rand(h.shape, generator=g, device=h.device) \
+                < 1.0 - p
             h = torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
         h = self.conv2(h)
         if self.nin_shortcut is not None:
@@ -78,7 +115,7 @@ class AttnBlock(nn.Module):
         super().__init__()
         self.norm = GroupNorm(c, **kw)
         self.q, self.k, self.v, self.proj_out = (
-            nn.Conv2d(c, c, 1, **kw) for _ in range(4))
+            Conv2d(c, c, 1, **kw) for _ in range(4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
@@ -100,7 +137,7 @@ class Downsample(nn.Module):
 
     def __init__(self, c: int, **kw):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, stride=2, padding=0, **kw)
+        self.conv = Conv2d(c, c, 3, stride=2, padding=0, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # F.pad's order: W left, W right, H top, H bottom
@@ -140,16 +177,23 @@ class Encoder(nn.Module):
         self.conv_out = _conv3(block_in, cfg.z_channels, **kw)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> torch.Tensor:
+        """With `generator`, dropout in the residual blocks (one seed each,
+        in call order, mid last); with `remat`, every block checkpointed."""
+        n_res = sum(len(b.res) for b in self.conv_blocks) + 2
+        seeds = iter(_block_seeds(n_res, generator))
         h = self.conv_in(x)
         for block in self.conv_blocks:
             for j, res in enumerate(block.res):
-                h = res(h, generator)
+                h = maybe_checkpoint(remat, res, h, next(seeds))
                 if len(block.attn):
-                    h = block.attn[j](h)
+                    h = maybe_checkpoint(remat, block.attn[j], h)
             if hasattr(block, "downsample"):
                 h = block.downsample(h)
-        h = self.mid[2](self.mid[1](self.mid[0](h, generator)), generator)
+        h = maybe_checkpoint(remat, self.mid[0], h, next(seeds))
+        h = maybe_checkpoint(remat, self.mid[1], h)
+        h = maybe_checkpoint(remat, self.mid[2], h, next(seeds))
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
@@ -190,14 +234,20 @@ class Decoder(nn.Module):
         self.conv_out = _conv3(block_in, 3, **kw)
 
     def forward(self, z: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> torch.Tensor:
+        """As `Encoder.forward` (the seeds in call order, mid first)."""
+        n_res = sum(len(b.res) for b in self.conv_blocks) + 2
+        seeds = iter(_block_seeds(n_res, generator))
         h = self.conv_in(z)
-        h = self.mid[2](self.mid[1](self.mid[0](h, generator)), generator)
+        h = maybe_checkpoint(remat, self.mid[0], h, next(seeds))
+        h = maybe_checkpoint(remat, self.mid[1], h)
+        h = maybe_checkpoint(remat, self.mid[2], h, next(seeds))
         for block in self.conv_blocks:
             for j, res in enumerate(block.res):
-                h = res(h, generator)
+                h = maybe_checkpoint(remat, res, h, next(seeds))
                 if len(block.attn):
-                    h = block.attn[j](h)
+                    h = maybe_checkpoint(remat, block.attn[j], h)
             if hasattr(block, "upsample"):
                 h = block.upsample(h)
         return self.conv_out(F.silu(self.norm_out(h)))
@@ -275,14 +325,14 @@ class VQModel(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.decoder = Decoder(cfg, **kw)
-        self.post_quant_conv = nn.Conv2d(cfg.codebook_embed_dim,
-                                         cfg.z_channels, 1, **kw)
+        self.post_quant_conv = Conv2d(cfg.codebook_embed_dim,
+                                      cfg.z_channels, 1, **kw)
         self.quantize = Codebook(cfg, **kw)
         self.encoder = self.quant_conv = None
         if encoder:
             self.encoder = Encoder(cfg, **kw)
-            self.quant_conv = nn.Conv2d(cfg.z_channels,
-                                        cfg.codebook_embed_dim, 1, **kw)
+            self.quant_conv = Conv2d(cfg.z_channels,
+                                     cfg.codebook_embed_dim, 1, **kw)
 
     def codebook_lookup(self, indices: torch.Tensor) -> torch.Tensor:
         """indices [...] -> f32 embeddings [..., e_dim], l2-normalised when
@@ -291,24 +341,27 @@ class VQModel(nn.Module):
                                    self.cfg)[indices]
 
     def encode(self, x: torch.Tensor, train: bool = False,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               remat: bool = False
                ) -> Tuple[torch.Tensor, Losses, torch.Tensor]:
-        """Images NHWC [B, H, W, 3] in [-1, 1], in the weights' dtype ->
-        (z_q [B, h, w, e_dim], losses, ids [B, h, w]). Dropout runs only
-        with `train` and a `generator`."""
+        """Images NHWC [B, H, W, 3] in [-1, 1] -> (z_q [B, h, w, e_dim],
+        losses, ids [B, h, w]), computed in x's dtype. Dropout runs only
+        with `train` and a `generator`; `remat` checkpoints the blocks."""
         if self.encoder is None:
             raise ValueError("this VQModel holds the decode half only "
                              "(VQModel(cfg, encoder=True) for encode)")
         gen = generator if train else None
-        h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2), gen))
+        h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2), gen, remat))
         return quantize(self.quantize.embedding.weight,
                         h.permute(0, 2, 3, 1), self.cfg, train)
 
     def decode(self, z_q: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Quantised latents NHWC [B, h, w, e_dim] -> images NHWC."""
+               generator: Optional[torch.Generator] = None,
+               remat: bool = False) -> torch.Tensor:
+        """Quantised latents NHWC [B, h, w, e_dim] -> images NHWC, in
+        z_q's dtype."""
         h = self.post_quant_conv(z_q.permute(0, 3, 1, 2))
-        return self.decoder(h, generator).permute(0, 2, 3, 1)
+        return self.decoder(h, generator, remat).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def decode_code(self, indices: torch.Tensor) -> torch.Tensor:
@@ -317,11 +370,15 @@ class VQModel(nn.Module):
         return self.decode(z)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Losses, torch.Tensor]:
-        """Encode and decode: (reconstruction NHWC, losses, ids)."""
-        z_q, losses, idx = self.encode(x, train, generator)
-        return self.decode(z_q, generator if train else None), losses, idx
+        """Encode and decode: (reconstruction NHWC, losses, ids). The
+        encoder draws its dropout seeds from `generator` first, then the
+        decoder."""
+        z_q, losses, idx = self.encode(x, train, generator, remat)
+        return (self.decode(z_q, generator if train else None, remat),
+                losses, idx)
 
 
 def decode_half(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

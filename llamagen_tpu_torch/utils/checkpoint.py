@@ -3,7 +3,9 @@
 Counterpart of `llamagen_tpu/utils/checkpoint.py` (orbax) for one device:
 `ckpt_dir/step_XXXXXXXX.pt`, written under a temporary name and renamed,
 so an interrupted save never leaves a truncated checkpoint under its final
-name.
+name. `save_vq_step` writes a VQ-GAN train state the same way, its VQ
+model's upstream state dict under "model", so the step file loads as a
+tokenizer (`cli/common.py::load_vq(path, encoder=True)`).
 """
 
 from __future__ import annotations
@@ -15,19 +17,35 @@ from typing import Optional, Tuple
 import torch
 
 from llamagen_tpu_torch.train.train_state import TrainState
+from llamagen_tpu_torch.train.vq import VQTrainState
 
 _NAME = re.compile(r"step_(\d+)\.pt$")
 
 
-def save_step(ckpt_dir: str, step: int, state: TrainState) -> str:
+def _save(ckpt_dir: str, step: int, payload: dict) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.pt")
     tmp = path + ".tmp"
-    torch.save({"step": state.step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "ema": state.ema}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_step(ckpt_dir: str, step: int, state: TrainState) -> str:
+    return _save(ckpt_dir, step, {
+        "step": state.step, "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(), "ema": state.ema})
+
+
+def save_vq_step(ckpt_dir: str, step: int, state: VQTrainState) -> str:
+    """Both models (the discriminator under upstream's "discriminator"),
+    both optimizers, the EMA, the step count and the usage window."""
+    return _save(ckpt_dir, step, {
+        "step": state.step, "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "discriminator": state.disc.state_dict(),
+        "optimizer_disc": state.disc_optimizer.state_dict(),
+        "ema": state.ema, "usage_window": state.usage_window})
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

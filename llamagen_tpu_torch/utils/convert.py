@@ -13,6 +13,9 @@ HWIO convolutions back to OIHW, and dense
 outputs are dicts of CPU torch tensors for `load_state_dict`.
 `t5_state_dict_from_flax` carries HF Flax T5 encoder weights (what the
 JAX package's `text/t5.py` runs) into the port's `text/t5.py::T5Encoder`.
+`patchgan_state_dict_from_jax`, `stylegan_state_dict_from_jax` and
+`lpips_state_dict_from_jax` carry the VQ-GAN's discriminators and LPIPS
+(`llamagen_tpu/models/{discriminator,lpips}.py`) into the port's modules.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from llamagen_tpu_torch.config import GPTConfig, VQConfig
+from llamagen_tpu_torch.models.lpips import VGG16_CONVS, slice_of
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -168,4 +172,72 @@ def vq_state_dict_from_jax(params: Mapping[str, Any],
     _conv(sd, "quant_conv", params["quant_conv"])
     _conv(sd, "post_quant_conv", params["post_quant_conv"])
     sd["quantize.embedding.weight"] = _t(params["quantize"]["codebook"])
+    return sd
+
+
+def _bn(sd: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    """BatchNorm scale and bias, and the running buffers upstream keys
+    hold (never read by the port's batch-statistics BatchNorm)."""
+    _gn(sd, name, p)
+    c = np.asarray(p["scale"]).shape[0]
+    sd[f"{name}.running_mean"] = torch.zeros(c)
+    sd[f"{name}.running_var"] = torch.ones(c)
+    sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def patchgan_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `init_patchgan` params -> the `NLayerDiscriminator` state dict
+    (`main.{i}`: the first conv at 0, (conv, BatchNorm) at 2 + 3i and
+    3 + 3i, the last conv after them; JAX `convert_patchgan` inverted)."""
+    convs, norms = params["convs"], params["norms"]
+    sd: StateDict = {}
+    _conv(sd, "main.0", convs[0])
+    for i, norm in enumerate(norms):
+        sd[f"main.{2 + 3 * i}.weight"] = \
+            _t(np.transpose(convs[i + 1]["kernel"], (3, 2, 0, 1)))
+        _bn(sd, f"main.{3 + 3 * i}", norm)
+    _conv(sd, f"main.{2 + 3 * len(norms)}", convs[-1])
+    return sd
+
+
+def stylegan_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `init_stylegan` params -> the upstream StyleGAN `Discriminator`
+    state dict, computing what JAX computes.
+
+    JAX flattens the final [B, 4, 4, C] map in NHWC order before `fc1`;
+    upstream (and the port) flattens [B, C, 4, 4]. So `fc1`'s input rows
+    are reordered from (h, w, c) to (c, h, w): JAX `convert_stylegan` does
+    not reorder them (ROADMAP F8)."""
+    sd: StateDict = {}
+    _conv(sd, "blocks.0", params["conv_in"])
+    for i, blk in enumerate(params["blocks"]):
+        base = f"blocks.{i + 2}"
+        _conv(sd, f"{base}.conv_res", blk["conv_res"])
+        _conv(sd, f"{base}.net.0", blk["conv1"])
+        _conv(sd, f"{base}.net.2", blk["conv2"])
+        sd[f"{base}.downsample.0.f"] = torch.tensor([1.0, 2.0, 1.0])
+        _conv(sd, f"{base}.downsample.1", blk["down"])
+    _conv(sd, "final_conv.0", params["final_conv"])
+    fc1 = np.asarray(params["fc1"]["kernel"])  # [(h, w, c), out]
+    c = np.asarray(params["final_conv"]["kernel"]).shape[-1]
+    side = int(round((fc1.shape[0] // c) ** 0.5))
+    sd["final_linear.0.weight"] = _t(
+        fc1.reshape(side, side, c, -1).transpose(3, 2, 0, 1)
+        .reshape(fc1.shape[1], -1))
+    sd["final_linear.0.bias"] = _t(params["fc1"]["bias"])
+    sd["final_linear.2.weight"] = _t(np.asarray(params["fc2"]["kernel"]).T)
+    sd["final_linear.2.bias"] = _t(params["fc2"]["bias"])
+    return sd
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `models.lpips` params ({"vgg": {"convs"}, "lins"}) -> the port's
+    `LPIPS` state dict (`net.slice{n}.{i}` at torchvision's conv indices,
+    `lin{k}.model.1.weight` [1, C, 1, 1])."""
+    sd: StateDict = {}
+    for i, conv in zip(VGG16_CONVS, params["vgg"]["convs"]):
+        _conv(sd, f"net.slice{slice_of(i)}.{i}", conv)
+    for k, lin in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = \
+            _t(np.asarray(lin["kernel"]).T[:, :, None, None])
     return sd

@@ -4,6 +4,7 @@ Not a pytest file:
 
     python tests/bench_torch_train.py [GPT-L] [384] [32] [out.json]
     python tests/bench_torch_train.py --t2i [GPT-XL] [256] [32] [out.json]
+    python tests/bench_torch_train.py --vq [--knockouts] [out.json]
 
 Builds the trainer of `llamagen_tpu_torch.train.c2i` (seeded weights,
 bf16 compute, f32 master weights, AdamW + EMA, full remat, the CLI's
@@ -22,6 +23,17 @@ traces three steps with `torch.profiler` and reports:
   the [B, S, V] f32 logits);
 - the 20 kernels with the most device time (all of them in the JSON).
 
+With `--vq`, the VQ-GAN tokenizer trainer of `train/vq.py` (VQ-16 at
+256 px, bf16 compute over f32 weights, per-block remat, PatchGAN, hinge,
+l2, disc_start 0 so every term and both updates run, a full-width random
+LPIPS, EMA) at batches 16, 32 and 64: s per step, img/s and peak memory
+each; at batch 32 the profile, with the device time by group
+(convolutions; GroupNorm, BatchNorm and elementwise; the optimizers and
+EMA; the attention blocks' matmuls), the idle share, and the VGG's own
+device time (LPIPS forward + backward of a batch of reconstructions,
+traced alone). `--knockouts` adds the step at batch 32 without LPIPS,
+without the discriminator, and with neither (reconstruction only).
+
 Prints a JSON object as its last line (and writes it to `out.json` when
 given). Needs a CUDA device.
 """
@@ -39,6 +51,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
+VQ_MODEL, VQ_SIZE, VQ_BATCHES = "VQ-16", 256, (16, 32, 64)
 
 
 def _group(name: str) -> str:
@@ -107,24 +120,158 @@ def t2i_setup(model, image, batch, dev):
     return state, step_fn, batch_at, 120 + latent * latent - 1, extra
 
 
+def _device_profile(fn, n):
+    """Run fn() n times under torch.profiler: (busy ms per run, kernels per
+    run, ms per run by kernel name)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in kernels]) / 1e3 / n
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + (e.time_range.end - e.time_range.start) / 1e3 / n
+    return busy, len(kernels) / n, by_name
+
+
+def vq_trainer(batch, dev, lpips=True, use_disc=True):
+    """The VQ-GAN trainer at the JAX CLI's settings (disc_start 0) and a
+    step closure on fixed random images."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.models import lpips as lpips_lib
+    from llamagen_tpu_torch.train import vq as vq_train
+
+    lp = lpips_lib.init_weights(lpips_lib.LPIPS(device=dev), seed=9) \
+        if lpips else None
+    state, step_fn = vq_train.build_trainer(
+        vq_config(VQ_MODEL), vq_train.VQLossConfig(disc_start=0), dev,
+        use_ema=True, lpips=lp, use_disc=use_disc,
+        compute_dtype=torch.bfloat16, remat=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    imgs = torch.rand(batch, VQ_SIZE, VQ_SIZE, 3, generator=g,
+                      device=dev) * 2 - 1
+
+    def step():
+        _, m = step_fn(state, imgs)
+        return m
+
+    return state, step, lp, imgs
+
+
+def vq_time(batch, dev, n=6, **kw):
+    """(s per step median, peak GiB, the step closure and its parts)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    parts = vq_trainer(batch, dev, **kw)
+    step = parts[1]
+    for _ in range(2):  # warm-up: allocator, cuDNN plans
+        float(step()["gen_loss"])
+    times = []
+    for _ in range(n):
+        t0 = time.time()
+        float(step()["gen_loss"])  # waits for the step
+        times.append(time.time() - t0)
+    return statistics.median(times), times, \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30, parts
+
+
+def vq_main(argv, smi, dev):
+    knockouts = "--knockouts" in argv
+    argv = [a for a in argv if not a.startswith("--")]
+    out_path = argv[0] if argv else None
+    res = {"card": smi, "model": VQ_MODEL, "image_size": VQ_SIZE,
+           "compute": "bf16 over f32 weights, per-block remat",
+           "disc": "patchgan", "batches": {}}
+    for batch in VQ_BATCHES:
+        step_s, times, peak, parts = vq_time(batch, dev)
+        res["batches"][batch] = {"step_s_median": step_s,
+                                 "step_s_all": times,
+                                 "img_per_s": batch / step_s,
+                                 "peak_memory_gib": peak}
+        print(f"batch {batch}: {step_s:.4f} s/step, {batch / step_s:.2f} "
+              f"img/s, peak {peak:.2f} GiB")
+        if batch != VQ_BATCHES[1]:
+            del parts
+            continue
+        busy, n_k, by_name = _device_profile(parts[1], 3)
+        groups = {}
+        for name, ms in by_name.items():
+            g = _group(name)
+            if g.startswith("other"):
+                g = "GroupNorm, BatchNorm, elementwise, reductions, copies"
+            groups[g] = groups.get(g, 0.0) + ms
+        _, _, lp, imgs = parts
+        recons = imgs.to(torch.bfloat16).requires_grad_(True)
+
+        def vgg():
+            lp.mean(imgs.to(torch.bfloat16), recons, remat=True).backward()
+
+        vgg()
+        vgg_busy, vgg_k, _ = _device_profile(vgg, 3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
+        res["profile_batch_32"] = {
+            "device_busy_ms_per_step": busy,
+            "idle_share": 1 - busy / (step_s * 1e3),
+            "kernels_per_step": n_k,
+            "device_ms_per_step_by_group": groups,
+            "vgg_alone_device_ms": vgg_busy, "vgg_alone_kernels": vgg_k,
+            "top_kernels_ms_per_step": top}
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"{g}: {ms:.2f} ms/step")
+        print(f"device busy {busy:.1f} ms/step, idle "
+              f"{100 * (1 - busy / (step_s * 1e3)):.2f} %, {n_k:.0f} "
+              f"kernels; the VGG alone (LPIPS fwd + bwd): {vgg_busy:.1f} ms")
+        for name, ms in top:
+            print(f"  {ms:8.3f} ms  {name[:110]}")
+        del parts, recons
+    if knockouts:
+        res["knockouts_batch_32"] = {}
+        for label, kw in (("no LPIPS", dict(lpips=False)),
+                          ("no discriminator", dict(use_disc=False)),
+                          ("reconstruction only",
+                           dict(lpips=False, use_disc=False))):
+            step_s, times, peak, parts = vq_time(VQ_BATCHES[1], dev, **kw)
+            del parts
+            res["knockouts_batch_32"][label] = {
+                "step_s_median": step_s, "step_s_all": times,
+                "peak_memory_gib": peak}
+            print(f"knockout {label}: {step_s:.4f} s/step, peak "
+                  f"{peak:.2f} GiB")
+    line = json.dumps(res)
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(line + "\n")
+    print(line)
+
+
 def main(argv):
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    if "--vq" in argv:
+        return vq_main([a for a in argv if a != "--vq"], smi,
+                       torch.device("cuda"))
     t2i_mode = "--t2i" in argv
     argv = [a for a in argv if a != "--t2i"]
     model = argv[0] if argv else ("GPT-XL" if t2i_mode else "GPT-L")
     image = int(argv[1]) if len(argv) > 1 else (256 if t2i_mode else 384)
     batch = int(argv[2]) if len(argv) > 2 else 32
     out_path = argv[3] if len(argv) > 3 else None
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
     from llamagen_tpu_torch.config import gpt_config
     from llamagen_tpu_torch.train import c2i
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
     latent = image // 16
     tokens = latent * latent
     extra = {}
