@@ -149,6 +149,30 @@ Phases, each of which raises on a failed check (exit code != 0):
    remat), LPIPS loaded from random state dicts in torchvision's and the
    reference's key layouts; the checkpoint loads into `VQModel(cfg,
    encoder=True)`; its log lines and peak memory.
+31. Training across ranks at one NCCL rank (`python -m
+   torch.distributed.run --standalone --nproc_per_node 1 chip_smoke.py
+   --rank-worker world1 ...`: the process group is made at world size 1,
+   so the sharded code runs): the c2i CLI of phase 11 with `--fsdp 1`
+   (FSDP2), its losses and grad norms held to phase 11's (WORLD1_BOUNDS;
+   bitwise is expected), its K4 counters exactly phase 11's, its step
+   time and peak memory beside phase 11's; the final DCP checkpoint
+   resumed for one step through `--resume` (step 11, K4 2 * 24, 24, 24);
+   the rank-0 whole-model export loaded by `cli/common.py::load_gpt`.
+32. GPT-XL t2i training of phase 25 sharded by FSDP2 at that rank, 3
+   steps (120 caption rows, one sample with valid 0): its losses held to
+   phase 25's first three, K4 2 * 36 * 3 and 36 * 3.
+33. The VQ-16 VQ-GAN at 256 px, batch 32, PatchGAN with the adaptive
+   weight and an entropy term of 0.1, 3 steps, one process then DP at
+   that rank in the same process: the first step's losses held to one
+   process's, step time and peak memory side by side.
+34. Two ranks on the one card over gloo with CUDA tensors
+   (`--rank-worker two_ranks`): GPT-L width cut to 4 layers, global batch
+   16 (8 a rank), f32 compute, 3 steps under FSDP2 (`--fsdp 2`) and DDP
+   (`--dp 2`), each rank's K4 counters exactly 2 * 4 * 3 and 4 * 3; then
+   the VQ-16 VQ-GAN (f32, LPIPS, PatchGAN, adaptive weight, entropy) under
+   DP; everything against one process on the same global batch
+   (TWO_RANK_BOUNDS, VQ_CPU_BOUNDS, VQ_RATIO_BOUND; the usage window
+   equal after the first step).
 
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
@@ -165,6 +189,10 @@ limit.
 Needs a CUDA device; runs nothing without one.
 """
 
+import contextlib
+import faulthandler
+import gc
+import hashlib
 import json
 import math
 import os
@@ -2009,15 +2037,30 @@ def time_train_attention(dev, shape, seed, label):
     return t
 
 
-def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
+def k4_kernels():
+    from llamagen_tpu_torch.ops import train_attention as ta
+    return (ta.train_attention_fwd, ta.train_attention_dq,
+            ta.train_attention_dkdv)
+
+
+def path_gb(path):
+    """The size of a file, or of every file under a directory, in GB."""
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 1e9
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e9
+
+
+def run_train_cli(dev, remat="full", steps=TRAIN_STEPS, args=(),
+                  results_dir=None, label="training CLI"):
     """The training path through its CLI at GPT-L 384, batch 32. Under
     remat "full" K4's forward runs twice per layer and step (the step and
-    the recompute), under "save_attn" once."""
+    the recompute), under "save_attn" once. `args` go to the CLI (a
+    mesh); `results_dir` keeps the run's files (else a temp directory)."""
     from llamagen_tpu_torch.cli import train_c2i
-    from llamagen_tpu_torch.ops import train_attention as ta
-    kernels = (ta.train_attention_fwd, ta.train_attention_dq,
-               ta.train_attention_dkdv)
-    with tempfile.TemporaryDirectory() as tmp:
+    kernels = k4_kernels()
+    with (tempfile.TemporaryDirectory() if results_dir is None
+          else contextlib.nullcontext(results_dir)) as tmp:
         torch.cuda.reset_peak_memory_stats(dev)
         for f in kernels:
             f.launches = 0
@@ -2027,7 +2070,7 @@ def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
             "--global-batch-size", str(TRAIN_BATCH),
             "--synthetic-steps", str(steps), "--log-every", "1",
             "--ckpt-every", "100000", "--results-dir", tmp,
-            "--remat", remat, "--device", "cuda"])
+            "--remat", remat, "--device", "cuda", *args])
         torch.cuda.synchronize()
         secs = time.time() - t0
         launches = {f.__name__: f.launches for f in kernels}
@@ -2035,8 +2078,10 @@ def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
         recs = [json.loads(line)
                 for line in open(os.path.join(tmp, "metrics.jsonl"))]
         recs = [r for r in recs if "loss" in r]
-        ckpt = os.path.join(tmp, "checkpoints", f"step_{steps:08d}.pt")
-        ckpt_gb = os.path.getsize(ckpt) / 1e9 if os.path.exists(ckpt) else 0
+        # one process: a .pt; under a process group: a DCP directory
+        ckpt = os.path.join(tmp, "checkpoints", f"step_{steps:08d}")
+        ckpt = ckpt + ".pt" if os.path.exists(ckpt + ".pt") else ckpt
+        ckpt_gb = path_gb(ckpt) if os.path.exists(ckpt) else 0
         n_params = sum(p.numel() for p in state.model.parameters())
         n_layer = state.model.cfg.n_layer
         del state
@@ -2044,7 +2089,7 @@ def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
     tokens = TRAIN_BATCH * TOKENS
     mfu = 6 * n_params * tokens / step_s / H100_BF16_FLOPS
     losses = [r["loss"] for r in recs]
-    log(f"training CLI (GPT-L 384, batch {TRAIN_BATCH}, {steps} steps, "
+    log(f"{label} (GPT-L 384, batch {TRAIN_BATCH}, {steps} steps, "
         f"bf16 compute, f32 master weights, AdamW + EMA, remat {remat}, "
         f"default dropouts): {secs:.1f} s in all; median step after warm-up "
         f"{step_s:.4f} s = {TRAIN_BATCH / step_s:.2f} samples/s = "
@@ -2068,7 +2113,9 @@ def run_train_cli(dev, remat="full", steps=TRAIN_STEPS):
             "train_attention_dkdv": n_layer * steps}
     if launches != want:
         raise AssertionError(f"K4 launches {launches}, expected {want}")
-    return launches, {"step_s": step_s, "peak_gib": peak, "mfu": mfu}
+    return launches, {"step_s": step_s, "peak_gib": peak, "mfu": mfu,
+                      "losses": losses,
+                      "grad_norms": [r["grad_norm"] for r in recs]}
 
 
 def run_train_step_vs_plain(dev):
@@ -2293,23 +2340,23 @@ def t2i_train_cfg(**kw):
                       model_type="t2i", caption_dim=T2I_CAPTION, **kw)
 
 
-def run_t2i_train(dev, steps=TRAIN_STEPS):
+def run_t2i_train(dev, steps=TRAIN_STEPS, mesh=None,
+                  label="t2i training"):
     """GPT-XL t2i training through `train/t2i.py::build_trainer`: 256 px,
     120 caption rows, batch 32, bf16 compute, f32 master weights, AdamW +
     EMA, full remat, the JAX CLI's dropouts (class, token, resid, ffn
     0.1), the frozen VQ-16 in bf16 encoding the images inside the step.
     The K4 counters must read 2 * 36 * N (forward) and 36 * N (dq, dk/dv);
     the first loss ln 16384 (the zeroed head), every loss and grad norm
-    finite; the VQ weights bit-unchanged with no .grad."""
-    from llamagen_tpu_torch.ops import train_attention as ta
+    finite; the VQ weights bit-unchanged with no .grad. With a `mesh`,
+    sharded over it (`build_trainer(mesh=...)`)."""
     from llamagen_tpu_torch.train import t2i
-    kernels = (ta.train_attention_fwd, ta.train_attention_dq,
-               ta.train_attention_dkdv)
+    kernels = k4_kernels()
     cfg = t2i_train_cfg(class_dropout_prob=0.1, token_dropout_p=0.1,
                         resid_dropout_p=0.1, ffn_dropout_p=0.1)
     vq_model = vq_encoder_model(dev, torch.bfloat16)
     before = {k: v.clone() for k, v in vq_model.state_dict().items()}
-    state, step_fn = t2i.build_trainer(cfg, vq_model, dev)
+    state, step_fn = t2i.build_trainer(cfg, vq_model, dev, mesh=mesh)
     n_params = sum(p.numel() for p in state.model.parameters())
     batches = [t2i_train_batch(dev, i) for i in range(2)]
     torch.cuda.synchronize()
@@ -2328,7 +2375,7 @@ def run_t2i_train(dev, steps=TRAIN_STEPS):
     step_s = statistics.median(times[2:])
     positions = TRAIN_BATCH * (T2I_T + 255)
     mfu = 6 * n_params * positions / step_s / H100_BF16_FLOPS
-    log(f"t2i training (GPT-XL 256 px, {n_params / 1e6:.1f}M params, 120 "
+    log(f"{label} (GPT-XL 256 px, {n_params / 1e6:.1f}M params, 120 "
         f"caption rows x 2048, batch {TRAIN_BATCH}, {steps} steps, bf16 "
         f"compute, full remat, dropouts 0.1, frozen bf16 VQ-16 encode in the "
         f"step): median step after warm-up {step_s:.4f} s = "
@@ -2336,7 +2383,7 @@ def run_t2i_train(dev, steps=TRAIN_STEPS):
         f"MFU {100 * mfu:.2f} % (6 * params * {TRAIN_BATCH} * 375 positions "
         f"/ step time / 989 TFLOP/s; the VQ encode and attention not "
         f"counted); first two steps {times[0]:.2f}, {times[1]:.2f} s")
-    log(f"t2i training losses {[round(x, 4) for x in losses]}, grad norms "
+    log(f"{label} losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in norms]}; K4 launches {launches}")
     if abs(losses[0] - math.log(16384)) > 1e-3:
         raise AssertionError(f"first loss {losses[0]} is not ln 16384")
@@ -2355,7 +2402,8 @@ def run_t2i_train(dev, steps=TRAIN_STEPS):
     log("t2i training: the VQ weights are bit-unchanged, no .grad")
     del state, step_fn, vq_model, batches
     torch.cuda.empty_cache()
-    return launches, {"step_s": step_s, "peak_gib": peak, "mfu": mfu}
+    return launches, {"step_s": step_s, "peak_gib": peak, "mfu": mfu,
+                      "losses": losses, "grad_norms": norms}
 
 
 def run_t2i_step_vs_plain(dev):
@@ -2439,14 +2487,16 @@ def vq_gan_images(dev, step, b=VQ_GAN_BATCH, size=256):
     return torch.rand(b, size, size, 3, generator=g, device=dev) * 2 - 1
 
 
-def vq_gan_run(dev, label, cfg, loss_cfg, steps, batch=VQ_GAN_BATCH):
+def vq_gan_run(dev, label, cfg, loss_cfg, steps, batch=VQ_GAN_BATCH,
+               mesh=None):
     """`steps` VQ-GAN steps, bf16 over f32 weights, remat, EMA: times,
-    peak memory and the checks of phase 28."""
+    peak memory and the checks of phase 28 (with a `mesh`, data parallel
+    over it)."""
     from llamagen_tpu_torch.train import vq as vq_train
     size = loss_cfg.image_size
     state, step_fn = vq_train.build_trainer(
         cfg, loss_cfg, dev, use_ema=True, lpips=vq_gan_lpips(dev),
-        compute_dtype=torch.bfloat16, remat=True)
+        compute_dtype=torch.bfloat16, remat=True, mesh=mesh)
     ema0 = {k: v.clone() for k, v in state.ema.items()}
     batches = [vq_gan_images(dev, i, batch, size) for i in range(2)]
     n_ids = batch * (size // cfg.downsample_factor) ** 2
@@ -2495,7 +2545,8 @@ def vq_gan_run(dev, label, cfg, loss_cfg, steps, batch=VQ_GAN_BATCH):
         raise AssertionError(f"{label}: a loss term is not live")
     del state, step_fn, batches
     torch.cuda.empty_cache()
-    return {"step_s": step_s, "img_s": batch / step_s, "peak_gib": peak}
+    return {"step_s": step_s, "img_s": batch / step_s, "peak_gib": peak,
+            "metrics": hist}
 
 
 def run_vq_gan_train(dev, name="VQ-16", size=256, batch=VQ_GAN_BATCH,
@@ -2654,6 +2705,433 @@ def run_vq_gan_cli(dev, steps=3, args=()):
     return {"peak_gib": peak, "img_s": recs[-1]["samples_per_sec"]}
 
 
+# ---------------------------------------------------------------------------
+# Training across ranks: torchrun subprocesses (phases 31-34)
+# ---------------------------------------------------------------------------
+
+# one process vs FSDP2 / DDP at one NCCL rank, same seed and batches, bf16:
+# bitwise is expected (at one rank FSDP2 gathers and reduce-scatters by
+# copying), the bound allows cuBLAS a kernel of another tiling on buffers
+# that FSDP2 aligns otherwise: each loss within 1e-3 of it relatively
+# (a quarter of a bf16 rounding), grad norms within 1e-2
+WORLD1_BOUNDS = {"loss": 1e-3, "grad_norm": 1e-2}
+# two gloo ranks sharing the card against one process on the same global
+# batch: GPT-L width cut to 4 layers, global batch 16 (8 a rank), f32
+# compute with TF32 off, 3 steps; the CPU tests' tolerances (loss and
+# grad_norm 1e-5, parameters 1 % of the summed lr) times 10, for cuBLAS's
+# other kernels at 8 rows than at 16; the VQ-GAN (VQ-16, 256 px, f32,
+# LPIPS, PatchGAN, the adaptive weight and the entropy term): the first
+# step's metrics within VQ_CPU_BOUNDS["metric"] and its usage window
+# equal, but the adaptive weight (and gen_loss, which it scales) within
+# 1e-2: it is the ratio of two gradient norms whose terms cancel through
+# the discriminator's BatchNorm (the gradient of a batch mean of
+# normalised values), so f32 sums in another order move it by 3.7e-4 on
+# the CPU at 64 px (two thread counts, one process) and by 1.3e-3 at two
+# ranks
+TWO_RANK_LAYERS, TWO_RANK_BATCH, DIST_STEPS = 4, 16, 3
+VQ_RATIO_BOUND = {"disc_adaptive_weight": 1e-2, "gen_loss": 1e-2}
+TWO_RANK_LR = 1e-4
+TWO_RANK_BOUNDS = {"loss": 1e-4, "grad_norm": 1e-4, "param_lr": 0.1}
+DIST_VQ_ENTROPY = 0.1  # the entropy term's ratio in the VQ-GAN phases
+
+
+def launch_ranks(nproc, worker, args, timeout=900):
+    """`python -m torch.distributed.run --standalone --nproc_per_node nproc
+    chip_smoke.py --rank-worker worker args`: every rank's JSON record
+    (the file rank{r}.json it writes into `args["dir"]`; the ranks share
+    one stdout, where long lines interleave). A launch that fails or
+    outlives `timeout` fails the phase; its whole process group is
+    killed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "--rank-worker", worker, json.dumps(args)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    for line in out.splitlines():  # the ranks' own log lines
+        log(f"  [{worker}] {line.strip()}")
+    for line in err.splitlines():
+        if "resumed" in line or "done at" in line:
+            log(f"  [{worker}] {line.strip()}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{worker} at {nproc} ranks exited "
+                           f"{proc.returncode}:\n{err[-6000:]}")
+    recs = []
+    for r in range(nproc):
+        with open(os.path.join(args["dir"], f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    if [r["rank"] for r in recs] != list(range(nproc)):
+        raise AssertionError(f"{worker}: rank records {recs}")
+    return recs
+
+
+def rank_worker(name, args):
+    """One rank of a `launch_ranks` call: joins torchrun's process group
+    (NCCL, or gloo with `args["backend"]`), runs the worker and writes
+    its record to `args["dir"]`/rank{r}.json."""
+    from llamagen_tpu_torch.parallel import distributed
+    faulthandler.enable()  # a rank that crashes prints where
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(args.get("device", "cuda"))
+    distributed.init_distributed(dev.type, args.get("backend"))
+    dev = distributed.local_device(dev)
+    rec = {"rank": distributed.rank(), "world": distributed.world_size(),
+           "device": str(dev), "backend": torch.distributed.get_backend(),
+           **RANK_WORKERS[name](dev, args)}
+    with open(os.path.join(args["dir"], f"rank{rec['rank']}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    distributed.shutdown()
+
+
+def _free():
+    """Return the memory of what the caller deleted to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def world1_worker(dev, args):
+    """Phases 31-33 at one NCCL rank: the c2i CLI under FSDP2 (--fsdp 1),
+    its DCP checkpoint resumed for one step; t2i training under FSDP2;
+    the VQ-GAN under DP, with its one-process run in this process."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.parallel.mesh import make_mesh
+    from llamagen_tpu_torch.train import vq as vq_train
+    out = {}
+    c2i_dir = os.path.join(args["dir"], "c2i")
+    launches, st = run_train_cli(dev, "full", TRAIN_STEPS, ["--fsdp", "1"],
+                                 c2i_dir, "FSDP2 c2i CLI at one rank")
+    ckpts = os.path.join(c2i_dir, "checkpoints")
+    export = os.path.join(ckpts, f"step_{TRAIN_STEPS:08d}_model.pt")
+    out["c2i"] = {**st, "launches": launches, "export": export,
+                  "dcp_gb": path_gb(os.path.join(
+                      ckpts, f"step_{TRAIN_STEPS:08d}")),
+                  "export_gb": path_gb(export)}
+    _free()
+    from llamagen_tpu_torch.cli import train_c2i
+    for f in k4_kernels():
+        f.launches = 0
+    t0 = time.time()
+    state = train_c2i.main([
+        "--gpt-model", "GPT-L", "--image-size", "384",
+        "--global-batch-size", str(TRAIN_BATCH), "--log-every", "1",
+        "--synthetic-steps", str(TRAIN_STEPS + 1), "--resume", ckpts,
+        "--results-dir", os.path.join(args["dir"], "c2i_resume"),
+        "--fsdp", "1", "--device", "cuda"])
+    recs = [json.loads(line) for line in open(os.path.join(
+        args["dir"], "c2i_resume", "metrics.jsonl")) if '"loss"' in line]
+    out["resume"] = {"step": state.step, "s": time.time() - t0,
+                     "losses": [r["loss"] for r in recs],
+                     "launches": {f.__name__: f.launches
+                                  for f in k4_kernels()}}
+    del state
+    _free()
+    mesh = make_mesh(1, 1, 1, "cuda")
+    launches, st = run_t2i_train(dev, DIST_STEPS, mesh,
+                                 "FSDP2 t2i training at one rank")
+    out["t2i"] = {**st, "launches": launches}
+    _free()
+    cfg = vq_config("VQ-16", entropy_loss_ratio=DIST_VQ_ENTROPY)
+    loss_cfg = vq_train.VQLossConfig(disc_start=0, disc_adaptive_weight=True,
+                                     image_size=256)
+    label = "VQ-GAN (VQ-16 256 px, PatchGAN, adaptive weight, entropy 0.1)"
+    out["vq_one"] = vq_gan_run(dev, f"{label}, one process", cfg, loss_cfg,
+                               DIST_STEPS)
+    out["vq"] = vq_gan_run(dev, f"{label}, DP at one rank", cfg, loss_cfg,
+                           DIST_STEPS, mesh=make_mesh(-1, 1, 1, "cuda"))
+    return out
+
+
+def two_rank_c2i(dev, mesh, path=None):
+    """3 steps of GPT-L width cut to TWO_RANK_LAYERS layers, f32 compute,
+    full remat, dropout off, a random head built on the CPU, global batch
+    TWO_RANK_BATCH (this rank's rows with a mesh): losses, grad norms, K4
+    launches; the whole parameters saved to `path` (rank 0)."""
+    from llamagen_tpu_torch.config import gpt_config, replace
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.parallel.mesh import shard_batch
+    from llamagen_tpu_torch.train import c2i
+    cfg = replace(gpt_config("GPT-L", block_size=TOKENS, cls_token_num=1,
+                             class_dropout_prob=0.0, token_dropout_p=0.0,
+                             resid_dropout_p=0.0, ffn_dropout_p=0.0),
+                  n_layer=TWO_RANK_LAYERS)
+    g = torch.Generator().manual_seed(61)
+    init = gpt.init_weights(gpt.Transformer(cfg), seed=0)
+    with torch.no_grad():
+        init.output.weight.normal_(0, 0.02, generator=g)
+    state, step = c2i.build_trainer(
+        cfg, dev, lr=TWO_RANK_LR, warmup_steps=1, ema_decay=0.9,
+        compute_dtype=torch.float32, remat="full", mesh=mesh,
+        weights=init.state_dict())
+    del init
+    for f in k4_kernels():
+        f.launches = 0
+    out = {"loss": [], "grad_norm": [], "step_s": []}
+    for i in range(DIST_STEPS):
+        t0 = time.time()
+        batch = c2i.Batch(
+            torch.randint(0, 1000, (TWO_RANK_BATCH,), generator=g),
+            torch.randint(0, 16384, (TWO_RANK_BATCH, TOKENS), generator=g))
+        if mesh is not None:
+            batch = shard_batch(batch)
+        state, m = step(state, c2i.Batch(batch.labels.to(dev),
+                                         batch.tokens.to(dev)), 0)
+        out["loss"].append(m["loss"].item())  # waits for the step
+        out["grad_norm"].append(m["grad_norm"].item())
+        out["step_s"].append(time.time() - t0)
+        log(f"c2i {'one process' if mesh is None else mesh} step {i}: "
+            f"loss {out['loss'][-1]:.6f}, {out['step_s'][-1]:.3f} s")
+    out["launches"] = {f.__name__: f.launches for f in k4_kernels()}
+    if mesh is None:
+        out["params"] = {k: v.detach().cpu()
+                         for k, v in state.model.state_dict().items()}
+    else:
+        full = whole_params_on_cpu(state.model)
+        if torch.distributed.get_rank() == 0:
+            torch.save(full, path)
+        del full
+    del state
+    _free()
+    return out
+
+
+def whole_params_on_cpu(model):
+    """Every parameter whole on every rank, as CPU tensors: FSDP2's dim-0
+    shards (`torch.chunk` sizes) gathered by gloo on the CPU. Over gloo,
+    DTensor's own gather of CUDA shards (`full_tensor`,
+    `get_model_state_dict(full_state_dict=True)`) crashes the process
+    (SIGSEGV in its functional all-gather, torch 2.11)."""
+    from torch.distributed.tensor import DTensor
+    world = torch.distributed.get_world_size()
+    out = {}
+    for name, p in model.named_parameters():
+        if not isinstance(p, DTensor):
+            out[name] = p.detach().cpu()
+            continue
+        local = p.to_local().detach().cpu()
+        rows = -(-p.shape[0] // world)
+        padded = torch.zeros((rows,) + tuple(p.shape[1:]), dtype=p.dtype)
+        padded[:local.shape[0]] = local
+        parts = [torch.empty_like(padded) for _ in range(world)]
+        torch.distributed.all_gather(parts, padded)
+        out[name] = torch.cat(parts)[:p.shape[0]]
+    return out
+
+
+def two_rank_vq(dev, mesh):
+    """One VQ-16 VQ-GAN run of DIST_STEPS steps at 256 px, f32 compute,
+    global batch TWO_RANK_BATCH (this rank's rows with a mesh): the
+    metrics and a digest of the usage window after each step."""
+    from llamagen_tpu_torch.config import vq_config
+    from llamagen_tpu_torch.parallel.mesh import shard_batch
+    from llamagen_tpu_torch.train import vq as vq_train
+    cfg = vq_config("VQ-16", entropy_loss_ratio=DIST_VQ_ENTROPY)
+    loss_cfg = vq_train.VQLossConfig(disc_start=0, disc_adaptive_weight=True,
+                                     image_size=256)
+    state, step = vq_train.build_trainer(
+        cfg, loss_cfg, dev, use_ema=True, lpips=vq_gan_lpips(dev),
+        compute_dtype=torch.float32, remat=True, mesh=mesh)
+    out = {"metrics": [], "window": [], "step_s": []}
+    for i in range(DIST_STEPS):
+        imgs = vq_gan_images(dev, 40 + i, TWO_RANK_BATCH)
+        t0 = time.time()
+        state, m = step(state, imgs if mesh is None else shard_batch(imgs))
+        out["metrics"].append({k: v.item() for k, v in m.items()})
+        out["step_s"].append(time.time() - t0)
+        log(f"VQ-GAN {'one process' if mesh is None else mesh} step {i}: "
+            f"gen_loss {out['metrics'][-1]['gen_loss']:.6f}, "
+            f"{out['step_s'][-1]:.3f} s")
+        out["window"].append(hashlib.sha1(
+            state.usage_window.cpu().numpy().tobytes()).hexdigest())
+    del state
+    _free()
+    return out
+
+
+def two_rank_worker(dev, args):
+    """Phase 34, one of two gloo ranks on the one card: c2i under FSDP2
+    (--fsdp 2) and under DDP (--dp 2), then the VQ-GAN under DP."""
+    from llamagen_tpu_torch.parallel.mesh import make_mesh
+    out = {}
+    for name, dp, fsdp in (("fsdp2", 1, 2), ("dp2", 2, 1)):
+        out[name] = two_rank_c2i(dev, make_mesh(dp, fsdp, 1, dev.type),
+                                 os.path.join(args["dir"], f"{name}.pt"))
+    out["vq"] = two_rank_vq(dev, make_mesh(-1, 1, 1, dev.type))
+    return out
+
+
+RANK_WORKERS = {"world1": world1_worker, "two_ranks": two_rank_worker}
+
+
+def _rel(a, b):
+    return max(abs(x / y - 1) for x, y in zip(a, b))
+
+
+def _check_world1(label, got, ref):
+    """Per-step losses and grad norms of a one-rank run against the
+    one-process run's (WORLD1_BOUNDS)."""
+    errs = {"loss": _rel(got["losses"], ref["losses"]),
+            "grad_norm": _rel(got["grad_norms"], ref["grad_norms"])}
+    same = got["losses"] == ref["losses"][:len(got["losses"])]
+    log(f"{label}: losses {'bitwise equal to' if same else 'within'} the "
+        f"one-process run's (max relative differences: loss "
+        f"{errs['loss']:.3g}, grad norm {errs['grad_norm']:.3g}); step "
+        f"{got['step_s']:.4f} s against {ref['step_s']:.4f} s "
+        f"({100 * (got['step_s'] / ref['step_s'] - 1):+.2f} %), peak "
+        f"{got['peak_gib']:.2f} GiB against {ref['peak_gib']:.2f}")
+    for k, bound in WORLD1_BOUNDS.items():
+        if errs[k] > bound:
+            raise AssertionError(f"{label}: {k} differs by {errs[k]:.3g} "
+                                 f"(bound {bound})")
+    return {**errs, "bitwise": same,
+            "gap": got["step_s"] / ref["step_s"] - 1}
+
+
+def run_world1(dev, c2i_ref, t2i_ref):
+    """Phases 31-33: `world1_worker` through torchrun at one NCCL rank,
+    held against the one-process phases 11 (c2i CLI) and 25 (t2i) and the
+    VQ-GAN run of the same process; the c2i DCP resume and the rank-0
+    whole-model export through `load_gpt`."""
+    from llamagen_tpu_torch.cli.common import load_gpt
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        (rec,) = launch_ranks(1, "world1", {"dir": tmp})
+        log(f"world-1 launch: {time.time() - t0:.1f} s in all, on "
+            f"{rec['device']} over {rec['backend']}")
+        c2i, t2i = rec["c2i"], rec["t2i"]
+        out = {"c2i": _check_world1("FSDP2 c2i CLI at one rank", c2i,
+                                    c2i_ref),
+               "t2i": _check_world1("FSDP2 t2i training at one rank", t2i,
+                                    {k: (v[:DIST_STEPS] if k in (
+                                        "losses", "grad_norms") else v)
+                                     for k, v in t2i_ref.items()})}
+        res = rec["resume"]
+        n_layer = 24
+        want = {"train_attention_fwd": 2 * n_layer,
+                "train_attention_dq": n_layer,
+                "train_attention_dkdv": n_layer}
+        log(f"DCP checkpoint {c2i['dcp_gb']:.2f} GB, whole-model export "
+            f"{c2i['export_gb']:.2f} GB; resumed run: step {res['step']}, "
+            f"loss {res['losses']}, {res['s']:.1f} s, K4 {res['launches']}")
+        if res["step"] != TRAIN_STEPS + 1 or len(res["losses"]) != 1 \
+                or not np.isfinite(res["losses"][0]) \
+                or res["launches"] != want:
+            raise AssertionError(f"the DCP resume: {res}")
+        model = load_gpt(c2i["export"], "GPT-L", 384, 16, torch.float32, dev)
+        n = sum(p.numel() for p in model.parameters())
+        finite = all(torch.isfinite(p).all() for p in model.parameters())
+        log(f"load_gpt(whole-model export): {n / 1e6:.1f}M parameters, "
+            f"finite {finite}")
+        if not finite or abs(n - 342.9e6) > 0.1e6:
+            raise AssertionError("the export did not load as GPT-L")
+        del model
+        _free()
+    one, dp = rec["vq_one"], rec["vq"]
+    errs = {k: abs(dp["metrics"][0][k] / one["metrics"][0][k] - 1)
+            for k in ("gen_loss", "rec_loss", "vq_loss", "commit_loss",
+                      "entropy_loss", "disc_loss")}
+    log(f"VQ-GAN DP at one rank vs one process, first step: relative "
+        f"differences {', '.join(f'{k} {v:.3g}' for k, v in errs.items())};"
+        f" step {dp['step_s']:.4f} s against {one['step_s']:.4f} s "
+        f"({100 * (dp['step_s'] / one['step_s'] - 1):+.2f} %), peak "
+        f"{dp['peak_gib']:.2f} GiB against {one['peak_gib']:.2f}")
+    if max(errs.values()) > WORLD1_BOUNDS["grad_norm"]:
+        raise AssertionError(f"VQ-GAN at one rank: {errs}")
+    if dp["metrics"][0]["entropy_loss"] == 0 or \
+            not 0 < dp["metrics"][0]["disc_adaptive_weight"] < 1e4:
+        raise AssertionError("VQ-GAN: the entropy term or the adaptive "
+                             "weight is not live")
+    out["vq"] = {"gap": dp["step_s"] / one["step_s"] - 1, **errs}
+    return {**out, "launches": {"c2i": c2i["launches"],
+                                "t2i": t2i["launches"]}}
+
+
+def run_two_ranks(dev):
+    """Phase 34: two gloo ranks on the one card (CUDA tensors), each
+    launching K4 on its own rows, against one process on the same global
+    batch (TWO_RANK_BOUNDS)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        recs = launch_ranks(2, "two_ranks", {"dir": tmp, "backend": "gloo"})
+        log(f"two-rank launch: {time.time() - t0:.1f} s")
+        return check_two_ranks(dev, recs, tmp)
+
+
+def check_two_ranks(dev, recs, tmp):
+    """The two ranks' records (and their parameters in `tmp`) against one
+    process's runs on `dev`."""
+    ref = two_rank_c2i(dev, None)
+    want = {"train_attention_fwd": 2 * TWO_RANK_LAYERS * DIST_STEPS,
+            "train_attention_dq": TWO_RANK_LAYERS * DIST_STEPS,
+            "train_attention_dkdv": TWO_RANK_LAYERS * DIST_STEPS}
+    lr_sum = TWO_RANK_LR * (DIST_STEPS - 1)  # warmup 1: lr 0, lr, lr
+    out = {}
+    for name in ("fsdp2", "dp2"):
+        params = torch.load(os.path.join(tmp, f"{name}.pt"),
+                            weights_only=True)
+        perr = max((params[k] - v).abs().max().item()
+                   for k, v in ref["params"].items())
+        del params
+        errs = {"loss": max(_rel(r[name]["loss"], ref["loss"])
+                            for r in recs),
+                "grad_norm": max(_rel(r[name]["grad_norm"],
+                                      ref["grad_norm"]) for r in recs),
+                "param_lr": perr / lr_sum}
+        log(f"two gloo ranks, c2i {name} (GPT-L width, "
+            f"{TWO_RANK_LAYERS} layers, global batch {TWO_RANK_BATCH}, "
+            f"f32): losses {[round(x, 6) for x in recs[0][name]['loss']]}"
+            f" against {[round(x, 6) for x in ref['loss']]}; max "
+            f"relative differences loss {errs['loss']:.3g}, grad norm "
+            f"{errs['grad_norm']:.3g}; parameters within "
+            f"{errs['param_lr']:.3g} of the summed lr; last step "
+            f"{max(r[name]['step_s'][-1] for r in recs):.3f} s (slower "
+            f"rank) against one process's {ref['step_s'][-1]:.3f} s; "
+            f"K4 per rank {[r[name]['launches'] for r in recs]}")
+        for r in recs:
+            if r[name]["launches"] != want:
+                raise AssertionError(f"{name} rank {r['rank']}: K4 "
+                                     f"{r[name]['launches']}, want {want}")
+        for k, bound in TWO_RANK_BOUNDS.items():
+            if errs[k] > bound:
+                raise AssertionError(f"two ranks {name}: {k} "
+                                     f"{errs[k]:.3g} > {bound}")
+        out[name] = errs
+    del ref
+    _free()
+    vref = two_rank_vq(dev, None)
+    rel, abs_ = VQ_CPU_BOUNDS["metric"]
+    for r in recs:
+        got = r["vq"]
+        # each metric's difference as a share of its bound
+        errs = {k: abs(got["metrics"][0][k] - v)
+                / (VQ_RATIO_BOUND.get(k, rel) * abs(v) + abs_)
+                for k, v in vref["metrics"][0].items()}
+        worst = max(errs, key=errs.get)
+        log(f"two gloo ranks, VQ-GAN rank {r['rank']}: first step's worst "
+            f"metric {worst} at {errs[worst]:.3g} of its bound; "
+            f"usage windows equal after step 1: "
+            f"{got['window'][0] == vref['window'][0]}; later gen_loss "
+            f"{[round(m['gen_loss'], 5) for m in got['metrics']]} against "
+            f"{[round(m['gen_loss'], 5) for m in vref['metrics']]}; last "
+            f"step {got['step_s'][-1]:.3f} s against one process's "
+            f"{vref['step_s'][-1]:.3f} s")
+        if errs[worst] > 1:
+            raise AssertionError(f"two-rank VQ-GAN {worst}: "
+                                 f"{got['metrics'][0][worst]} vs "
+                                 f"{vref['metrics'][0][worst]}")
+        if got["window"][0] != vref["window"][0]:
+            raise AssertionError("two-rank VQ-GAN: the usage window differs")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -2701,7 +3179,7 @@ def main():
           lambda d: run_spec_greedy_f32(d, "GPT-3B", n_layer=2))
     k4_err, k4_t, k4_t2i_err, k4_t2i_t = phase("K4 checks",
                                                check_train_attention)
-    k4_launches, _ = phase("training CLI", run_train_cli)
+    k4_launches, train_stats = phase("training CLI", run_train_cli)
     phase("training CLI, remat save_attn",
           lambda d: run_train_cli(d, "save_attn", 4))
     phase("training step vs plain", run_train_step_vs_plain)
@@ -2717,12 +3195,17 @@ def main():
     phase("t2i sampling CLI", run_t2i_cli)
     phase("VQ-16 encode, full width", run_vq_encode)
     phase("tokenizer CLIs' batch functions", run_vq_cli_batches)
-    t2i_train_launches, _ = phase("t2i training, GPT-XL", run_t2i_train)
+    t2i_train_launches, t2i_stats = phase("t2i training, GPT-XL",
+                                          run_t2i_train)
     phase("t2i training step vs plain", run_t2i_step_vs_plain)
     phase("t2i training CLI", run_t2i_train_cli)
     phase("VQ-GAN training, VQ-16", run_vq_gan_train)
     phase("VQ-GAN f32 step, card vs CPU", run_vq_gan_vs_cpu)
     phase("VQ-GAN training CLI", run_vq_gan_cli)
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+    phase("training across ranks, one NCCL rank",
+          lambda d: run_world1(d, train_stats, t2i_stats))
+    phase("training across ranks, two gloo ranks on the card", run_two_ranks)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):
@@ -2801,4 +3284,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:  # a rank of `launch_ranks`
+        rank_worker(sys.argv[2], json.loads(sys.argv[3]))
+    else:
+        main()

@@ -1,18 +1,24 @@
-"""Shared CLI helpers: device choice, checkpoint loading, image saving."""
+"""Shared CLI helpers: device choice, the trainers' process group,
+checkpoint loading, image saving."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 import zlib
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from llamagen_tpu_torch.config import gpt_config, vq_config
 from llamagen_tpu_torch.models import gpt as gpt_lib
 from llamagen_tpu_torch.models import vq as vq_lib
+from llamagen_tpu_torch.parallel import distributed
+from llamagen_tpu_torch.parallel import mesh as mesh_lib
 from llamagen_tpu_torch.utils.convert import load_torch_state_dict
 
 
@@ -22,6 +28,54 @@ def get_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device")
     return device
+
+
+def add_parallel_args(p, dp: int = 1, fsdp: Optional[int] = -1) -> None:
+    """--dp / --fsdp / --tp (JAX's mesh flags; -1 absorbs the world);
+    `fsdp` None leaves --fsdp out (the VQ-GAN CLI)."""
+    p.add_argument("--dp", type=int, default=dp,
+                   help="data-parallel (DDP) ranks; -1: the rest")
+    if fsdp is not None:
+        p.add_argument("--fsdp", type=int, default=fsdp,
+                       help="fully sharded (FSDP2) ranks; -1: the rest")
+        p.add_argument("--tp", type=int, default=1,
+                       help="tensor parallel: only 1 (ROADMAP item 9)")
+
+
+@contextlib.contextmanager
+def process_group(args, device: torch.device
+                  ) -> Iterator[Tuple[torch.device, Optional[DeviceMesh]]]:
+    """(this rank's device, the ("dp", "fsdp") mesh) of a training CLI.
+
+    Under torchrun (or a multi-task SLURM job) the process group is made,
+    even at one rank, and torn down at exit if this call made it; a plain
+    run is one process with no mesh, and a mesh other than 1 x 1 raises
+    `ValueError` there. `--tp` above 1 raises `NotImplementedError`."""
+    dp, fsdp, tp = args.dp, getattr(args, "fsdp", 1), getattr(args, "tp", 1)
+    owned = not dist.is_initialized()
+    if not distributed.init_distributed(device.type):
+        mesh_lib.mesh_shape(dp, fsdp, tp, 1)
+        yield device, None
+        return
+    try:
+        device = distributed.local_device(device)
+        yield device, mesh_lib.make_mesh(dp, fsdp, tp, device.type)
+        if owned:
+            dist.barrier()
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def min_over_ranks(value: int, device: torch.device) -> int:
+    """The least of the ranks' `value`s: the step bound that ranks whose
+    data differ in size stop at together, or 0 where any rank says no;
+    one process: `value`."""
+    if not dist.is_initialized():
+        return value
+    t = torch.tensor([value], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
 
 
 def _load(path: str, keep_dtypes: bool = False) -> Dict[str, torch.Tensor]:

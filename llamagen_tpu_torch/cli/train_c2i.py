@@ -1,13 +1,22 @@
-"""Class-conditional GPT training CLI (PyTorch port, one device).
+"""Class-conditional GPT training CLI (PyTorch port).
 
 Same flags and flow as `llamagen_tpu/cli/train_c2i.py`, plus `--device`:
 synthetic, packed-shard, reference-npy (repacked once) or raw-shard (the
 threaded native loader) inputs; `metrics.jsonl`; periodic and final
-checkpoints; resume. Only one device: `--dp`, `--fsdp` and `--tp` other than
-1 raise `NotImplementedError`.
+checkpoints; resume.
+
+Across GPUs, under torchrun: `--fsdp` ranks shard the model (FSDP2; the
+default `--fsdp -1` takes every rank), `--dp` ranks replicate it (DDP),
+both at once give HSDP (`parallel/`). Each rank takes its stride of the
+global batch, logs and metrics come from rank 0, and checkpoints are
+sharded DCP directories, the final one beside a whole-model
+`step_XXXXXXXX_model.pt` that the sampling CLIs load. `--tp` above 1
+raises `NotImplementedError` (ROADMAP item 9).
 
   python -m llamagen_tpu_torch.cli.train_c2i --code-path /data/codes \
       --gpt-model GPT-L --image-size 384 --global-batch-size 32
+  torchrun --nproc_per_node 8 -m llamagen_tpu_torch.cli.train_c2i \
+      --code-path /data/codes --gpt-model GPT-XL --global-batch-size 256
 """
 
 from __future__ import annotations
@@ -19,10 +28,14 @@ import time
 import numpy as np
 import torch
 
-from llamagen_tpu_torch.cli.common import get_device
+from llamagen_tpu_torch.cli.common import (add_parallel_args, get_device,
+                                           min_over_ranks,
+                                           process_group)
 from llamagen_tpu_torch.config import gpt_config
 from llamagen_tpu_torch.data.codes import (NpyCodeDataset, PackedCodeDataset,
                                            SyntheticCodeDataset, pack_shards)
+from llamagen_tpu_torch.parallel import distributed
+from llamagen_tpu_torch.parallel.mesh import local_batch_size, rank_rows
 from llamagen_tpu_torch.train import c2i
 from llamagen_tpu_torch.utils import checkpoint
 from llamagen_tpu_torch.utils.logger import (create_experiment_dir,
@@ -68,9 +81,7 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=300)
     p.add_argument("--max-steps", type=int, default=-1)
     p.add_argument("--no-ema", action="store_true")
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--fsdp", type=int, default=-1)
-    p.add_argument("--tp", type=int, default=1)
+    add_parallel_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--ckpt-every", type=int, default=5000)
@@ -93,12 +104,12 @@ def main(argv=None):
                         "attention output, recompute the rest), or none")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    with process_group(args, get_device(args.device)) as (device, mesh):
+        return train(args, device, mesh)
 
-    if args.dp != 1 or args.fsdp not in (-1, 1) or args.tp != 1:
-        raise NotImplementedError(
-            "multi-GPU training (DDP / FSDP2 / tensor parallel) is not "
-            "ported yet (ROADMAP.md, slice 3)")
-    device = get_device(args.device)
+
+def train(args, device, mesh):
+    rank, world = distributed.rank(), distributed.world_size()
     latent = args.image_size // args.downsample_size
     # drop-path replaces resid/ffn dropout (ref train_c2i.py:97-100)
     dropout_p = 0.0 if args.drop_path_rate > 0.0 else args.dropout_p
@@ -114,17 +125,17 @@ def main(argv=None):
                                                  args.gpt_model)
     os.makedirs(args.results_dir, exist_ok=True)
     logger = create_logger(args.results_dir)
-    logger.info(f"device {device}; model {args.gpt_model} "
+    logger.info(f"device {device}; mesh {mesh}; model {args.gpt_model} "
                 f"({latent}x{latent} tokens)")
     mlog = MetricsLogger(args.results_dir, use_wandb=args.wandb,
-                         config=vars(args))
+                         config=vars(args), is_main=rank == 0)
 
     state, step_fn = c2i.build_trainer(
         cfg, device, lr=args.lr, weight_decay=args.weight_decay,
         beta1=args.beta1, beta2=args.beta2,
         max_grad_norm=args.max_grad_norm, warmup_steps=args.warmup_steps,
         use_ema=not args.no_ema, seed=args.seed,
-        remat=False if args.remat == "none" else args.remat)
+        remat=False if args.remat == "none" else args.remat, mesh=mesh)
 
     start_step = 0
     if args.resume:
@@ -133,7 +144,7 @@ def main(argv=None):
             start_step = step
             logger.info(f"resumed from step {start_step}")
 
-    host_batch = args.global_batch_size
+    host_batch = local_batch_size(args.global_batch_size, world)
     it = None
     if args.synthetic_steps > 0:
         ds = SyntheticCodeDataset(args.global_batch_size * 4,
@@ -143,13 +154,15 @@ def main(argv=None):
     elif _has(args.code_path, ".codes"):
         # raw shards -> threaded C++ loader (preferred input path)
         from llamagen_tpu_torch.data.native import NativeCodeLoader
-        it = NativeCodeLoader(args.code_path, host_batch, seed=args.seed)
+        it = NativeCodeLoader(args.code_path, host_batch, seed=args.seed,
+                              num_hosts=world, host_id=rank)
         # the loader reshuffles forever: --epochs becomes a step bound
         max_steps = args.max_steps
         if max_steps <= 0 and args.epochs > 0:
-            max_steps = args.epochs * max(it.num_samples // host_batch, 1)
+            max_steps = min_over_ranks(
+                args.epochs * max(it.num_samples // host_batch, 1), device)
     elif _has(args.code_path, (".npz", ".codes.npy")):
-        ds = PackedCodeDataset(args.code_path)
+        ds = PackedCodeDataset(args.code_path, num_hosts=world, host_id=rank)
         max_steps = args.max_steps
     elif args.code_path:
         # reference {i}.npy micro-file layout: repack once (cached next to
@@ -157,15 +170,21 @@ def main(argv=None):
         packed = args.code_path.rstrip("/") + "_packed"
         src = NpyCodeDataset(args.code_path,
                              args.label_path or args.code_path)
-        if not _has(packed, ".codes.npy"):
+        if rank == 0 and not _has(packed, ".codes.npy"):
             logger.info(f"repacking {len(src)} npy micro-files -> {packed}")
             pack_shards(src, packed)
-        ds = PackedCodeDataset(packed)
+        distributed.barrier()
+        ds = PackedCodeDataset(packed, num_hosts=world, host_id=rank)
         max_steps = args.max_steps
     else:
         raise SystemExit("need --code-path or --synthetic-steps")
 
-    if it is None:
+    if it is None and args.synthetic_steps > 0:
+        # every rank draws the global batch and keeps its rows
+        it = ((rank_rows(c, rank, world), rank_rows(lb, rank, world))
+              for c, lb in ds.batches(args.global_batch_size,
+                                      seed=args.seed, epochs=args.epochs))
+    elif it is None:
         it = ds.batches(host_batch, seed=args.seed, epochs=args.epochs)
     t0, last_log = time.time(), start_step
     running_loss = 0.0
@@ -178,7 +197,8 @@ def main(argv=None):
         batch = c2i.Batch(
             labels=torch.from_numpy(np.asarray(labels, np.int64)).to(device),
             tokens=torch.from_numpy(np.asarray(codes, np.int64)).to(device))
-        if args.profile_dir and step == start_step + 2 and prof is None:
+        if args.profile_dir and rank == 0 and step == start_step + 2 \
+                and prof is None:
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 *([torch.profiler.ProfilerActivity.CUDA]
@@ -214,6 +234,9 @@ def main(argv=None):
     if prof:  # the run ended inside the profiled steps
         _save_trace(prof, args.profile_dir)
     path = checkpoint.save_step(ckpt_dir, step, state)
+    if mesh is not None:
+        checkpoint.save_full_model(
+            os.path.join(ckpt_dir, f"step_{step:08d}_model.pt"), state)
     logger.info(f"done at step {step}; final checkpoint {path}")
     mlog.close()
     return state

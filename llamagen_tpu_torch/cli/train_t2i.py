@@ -1,17 +1,20 @@
 """Text-conditional GPT training CLI (PyTorch port of
-`llamagen_tpu/cli/train_t2i.py`, one device).
+`llamagen_tpu/cli/train_t2i.py`).
 
 Trains on images + precomputed T5 caption features (a jsonl dataset,
 `data/t2i.py`), tokenizing the images with a frozen VQ model inside the
 step (`train/t2i.py`), with per-sample caption masks and the `valid`
 bad-sample loss mask. Same flags and defaults as the JAX CLI, plus
-`--device`; `metrics.jsonl`, periodic and final checkpoints, resume. Only
-one device: `--dp`, `--fsdp` and `--tp` other than 1 raise
-`NotImplementedError`.
+`--device`; `metrics.jsonl`, periodic and final
+checkpoints, resume. Across GPUs under torchrun, `--dp` / `--fsdp` as in
+`cli/train_c2i.py` (DDP, FSDP2, HSDP; sharded DCP checkpoints and a
+whole-model export); the frozen VQ is whole on every rank and encodes
+that rank's images. `--tp` above 1 raises `NotImplementedError`.
 
   python -m llamagen_tpu_torch.cli.train_t2i --jsonl data/items.jsonl \\
       --t5-feature-dir data/t5 --vq-ckpt vq_ds16_t2i.pt \\
       --gpt-model GPT-XL --image-size 256
+  torchrun --nproc_per_node 8 -m llamagen_tpu_torch.cli.train_t2i ...
 
 Smoke mode (no data needed): --synthetic-steps N (the caption window
 shrinks to 8 tokens of 64 features).
@@ -26,9 +29,12 @@ import time
 import numpy as np
 import torch
 
-from llamagen_tpu_torch.cli.common import get_device, load_vq
+from llamagen_tpu_torch.cli.common import (add_parallel_args, get_device,
+                                           load_vq, process_group)
 from llamagen_tpu_torch.config import gpt_config
 from llamagen_tpu_torch.data.t2i import T2IDataset
+from llamagen_tpu_torch.parallel import distributed
+from llamagen_tpu_torch.parallel.mesh import local_batch_size, rank_rows
 from llamagen_tpu_torch.train import t2i
 from llamagen_tpu_torch.utils import checkpoint
 from llamagen_tpu_torch.utils.logger import (create_experiment_dir,
@@ -84,9 +90,7 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=60)
     p.add_argument("--max-steps", type=int, default=-1)
     p.add_argument("--no-ema", action="store_true")
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--fsdp", type=int, default=-1)
-    p.add_argument("--tp", type=int, default=1)
+    add_parallel_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--ckpt-every", type=int, default=5000)
@@ -100,12 +104,12 @@ def main(argv=None):
                    help="mirror metrics.jsonl to wandb when importable")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    with process_group(args, get_device(args.device)) as (device, mesh):
+        return train(args, device, mesh)
 
-    if args.dp != 1 or args.fsdp not in (-1, 1) or args.tp != 1:
-        raise NotImplementedError(
-            "multi-GPU training (DDP / FSDP2 / tensor parallel) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 5)")
-    device = get_device(args.device)
+
+def train(args, device, mesh):
+    rank, world = distributed.rank(), distributed.world_size()
     latent = args.image_size // args.downsample_size
     if args.synthetic_steps > 0:
         # shrink the caption window so that the smoke run stays fast
@@ -128,17 +132,17 @@ def main(argv=None):
                                                  args.gpt_model)
     os.makedirs(args.results_dir, exist_ok=True)
     logger = create_logger(args.results_dir)
-    logger.info(f"device {device}; model {args.gpt_model} t2i "
-                f"({latent}x{latent} tokens, T={cfg.cls_token_num})")
+    logger.info(f"device {device}; mesh {mesh}; model {args.gpt_model} "
+                f"t2i ({latent}x{latent} tokens, T={cfg.cls_token_num})")
     mlog = MetricsLogger(args.results_dir, use_wandb=args.wandb,
-                         config=vars(args))
+                         config=vars(args), is_main=rank == 0)
 
     state, step_fn = t2i.build_trainer(
         cfg, vq_model, device, lr=args.lr, weight_decay=args.weight_decay,
         beta1=args.beta1, beta2=args.beta2,
         max_grad_norm=args.max_grad_norm, warmup_steps=args.warmup_steps,
         use_ema=not args.no_ema, seed=args.seed,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, mesh=mesh)
 
     start_step = 0
     if args.resume:
@@ -147,17 +151,20 @@ def main(argv=None):
             start_step = step
             logger.info(f"resumed from step {start_step}")
 
-    host_batch = args.global_batch_size
+    host_batch = local_batch_size(args.global_batch_size, world)
     if args.synthetic_steps > 0:
-        it = synthetic_batches(host_batch, args.image_size,
-                               cfg.cls_token_num, cfg.caption_dim,
-                               seed=args.seed)
+        # every rank draws the global batch and keeps its rows
+        it = (tuple(rank_rows(x, rank, world) for x in b)
+              for b in synthetic_batches(args.global_batch_size,
+                                         args.image_size, cfg.cls_token_num,
+                                         cfg.caption_dim, seed=args.seed))
         max_steps = args.synthetic_steps
     elif args.jsonl and args.t5_feature_dir:
         ds = T2IDataset(args.jsonl, args.t5_feature_dir, args.image_size,
                         caption_dim=cfg.caption_dim,
                         t5_len=cfg.cls_token_num)
-        it = ds.batches(host_batch, seed=args.seed, epochs=args.epochs)
+        it = ds.batches(host_batch, seed=args.seed, epochs=args.epochs,
+                        num_hosts=world, host_id=rank)
         max_steps = args.max_steps
     else:
         raise SystemExit("need --jsonl + --t5-feature-dir, or "
@@ -194,6 +201,9 @@ def main(argv=None):
             logger.info(f"saved checkpoint {path}")
 
     path = checkpoint.save_step(ckpt_dir, step, state)
+    if mesh is not None:
+        checkpoint.save_full_model(
+            os.path.join(ckpt_dir, f"step_{step:08d}_model.pt"), state)
     logger.info(f"done at step {step}; final checkpoint {path}")
     mlog.close()
     return state

@@ -1,5 +1,5 @@
 """VQ-GAN tokenizer training CLI (PyTorch port of
-`llamagen_tpu/cli/train_vq.py`, one device).
+`llamagen_tpu/cli/train_vq.py`).
 
 Alternating generator / discriminator updates (`train/vq.py`) with LPIPS
 and adversarial losses, an optional EMA and checkpoints. Data: an
@@ -7,14 +7,17 @@ ImageFolder directory (short-side resize to 1.25x, random crop, hflip) or
 synthetic uniform images (`--synthetic-steps`). The same flags and
 defaults as JAX's, plus `--device` (default cuda; no CPU fallback). LPIPS
 is on only with `--vgg-weights` (a torchvision vgg16 state dict), and then
-`--lpips-lins` (the reference's `vgg.pth` heads) is required. One device:
-`--dp` above 1 raises `NotImplementedError`. Writes the log,
-`metrics.jsonl` every `--log-every` steps and `checkpoints/step_*.pt`
-(`utils/checkpoint.py::save_vq_step`; its "model" entry loads as a
-tokenizer).
+`--lpips-lins` (the reference's `vgg.pth` heads) is required. Writes the
+log, `metrics.jsonl` every `--log-every` steps and
+`checkpoints/step_*.pt` (`utils/checkpoint.py::save_vq_step`; its "model"
+entry loads as a tokenizer). Under torchrun `--dp` ranks (default -1:
+every rank) train data-parallel, both models replicated, each rank on its
+stride of the global batch (`train/vq.py`); checkpoints are then DCP
+directories, the last beside a whole-model `step_XXXXXXXX_model.pt`.
 
   python -m llamagen_tpu_torch.cli.train_vq --data-path /data/imagenet/train \\
       --image-size 256 --vq-model VQ-16
+  torchrun --nproc_per_node 8 -m llamagen_tpu_torch.cli.train_vq ...
 """
 
 from __future__ import annotations
@@ -26,18 +29,28 @@ import time
 import numpy as np
 import torch
 
-from llamagen_tpu_torch.cli.common import get_device
+from llamagen_tpu_torch.cli.common import (add_parallel_args, get_device,
+                                           min_over_ranks, process_group)
 from llamagen_tpu_torch.config import vq_config
 from llamagen_tpu_torch.models import lpips as lpips_lib
+from llamagen_tpu_torch.parallel import distributed
+from llamagen_tpu_torch.parallel.mesh import local_batch_size
 from llamagen_tpu_torch.train import vq as vq_train
 from llamagen_tpu_torch.utils import checkpoint
 from llamagen_tpu_torch.utils.logger import create_logger
 from llamagen_tpu_torch.utils.metrics import MetricsLogger
 
 
-def image_batches(root, image_size, batch_size, seed=0):
+def image_batches(root, image_size, batch_size, seed=0, rank=0, world=1,
+                  device="cpu"):
     """Random-crop (after a short-side resize to 1.25x, aspect kept) +
-    hflip ImageFolder stream of f32 NHWC batches in [-1, 1]."""
+    hflip ImageFolder stream of f32 NHWC batches in [-1, 1]: of each
+    global batch of `batch_size` images, rank `rank`'s stride (`world`
+    ranks: every rank draws the same images, and crops and flips its own
+    from a stream of (seed, rank)). A global batch with an unreadable
+    image is skipped, as one process skips it: under a process group the
+    ranks agree on it (a MIN all-reduce on `device`), so every rank skips
+    it and their strides stay of one global batch."""
     from PIL import Image
 
     paths = []
@@ -45,11 +58,13 @@ def image_batches(root, image_size, batch_size, seed=0):
         for f in files:
             if f.lower().endswith((".jpg", ".jpeg", ".png", ".webp")):
                 paths.append(os.path.join(dirpath, f))
-    rng = np.random.RandomState(seed)
+    paths.sort()  # one order on every rank, whatever the file system's
+    pick = np.random.RandomState(seed)
+    rng = np.random.RandomState([seed, rank])
     while True:
-        sel = rng.choice(len(paths), size=batch_size)
+        sel = pick.choice(len(paths), size=batch_size)
         imgs = []
-        for i in sel:
+        for i in sel[rank::world]:
             try:
                 img = Image.open(paths[i]).convert("RGB")
             except OSError:
@@ -67,15 +82,16 @@ def image_batches(root, image_size, batch_size, seed=0):
             if rng.rand() < 0.5:
                 arr = arr[:, ::-1]
             imgs.append(arr)
-        if len(imgs) == batch_size:
+        if min_over_ranks(int(len(imgs) == batch_size // world), device):
             yield np.stack(imgs).astype(np.float32) / 127.5 - 1.0
 
 
-def synthetic_batches(image_size, batch_size, seed=0):
+def synthetic_batches(image_size, batch_size, seed=0, rank=0, world=1):
+    """Uniform random global batches; rank `rank`'s stride of each."""
     rng = np.random.RandomState(seed)
     while True:
         yield rng.uniform(-1, 1, (batch_size, image_size, image_size, 3)
-                          ).astype(np.float32)
+                          ).astype(np.float32)[rank::world]
 
 
 def main(argv=None):
@@ -115,22 +131,22 @@ def main(argv=None):
                    help="compute dtype; weights and optimizers stay f32")
     p.add_argument("--no-remat", action="store_true",
                    help="disable per-block activation checkpointing")
-    p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel size: one device (-1 or 1) only")
+    add_parallel_args(p, dp=-1, fsdp=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--ckpt-every", type=int, default=5000)
     p.add_argument("--results-dir", default="results_vq")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-
-    if args.dp > 1:
-        raise NotImplementedError(
-            "multi-GPU VQ-GAN training (DDP) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
     if args.vgg_weights and not args.lpips_lins:
         p.error("--vgg-weights needs --lpips-lins (the LPIPS heads)")
-    device = get_device(args.device)
+    with process_group(args, get_device(args.device)) as (device, mesh):
+        return train(args, device, mesh)
+
+
+def train(args, device, mesh):
+    rank, world = distributed.rank(), distributed.world_size()
+    batch = local_batch_size(args.global_batch_size, world)
     cfg = vq_config(args.vq_model, codebook_size=args.codebook_size,
                     codebook_embed_dim=args.codebook_embed_dim,
                     dropout_p=args.dropout_p)
@@ -151,24 +167,27 @@ def main(argv=None):
 
     os.makedirs(args.results_dir, exist_ok=True)
     logger = create_logger(args.results_dir)
-    logger.info(f"device {device}; {args.vq_model} at {args.image_size} px, "
-                f"batch {args.global_batch_size}, LPIPS "
+    logger.info(f"device {device}; mesh {mesh}; {args.vq_model} at "
+                f"{args.image_size} px, batch {args.global_batch_size} "
+                f"({batch} a rank), LPIPS "
                 f"{'on' if lpips is not None else 'off'}")
-    mlog = MetricsLogger(args.results_dir, config=vars(args))
+    mlog = MetricsLogger(args.results_dir, config=vars(args),
+                         is_main=rank == 0)
     state, step_fn = vq_train.build_trainer(
         cfg, loss_cfg, device, lr=args.lr, use_ema=args.ema,
         ema_decay=0.999, seed=args.seed, lpips=lpips,
         compute_dtype=(torch.bfloat16 if args.mixed_precision == "bf16"
                        else torch.float32),
-        remat=not args.no_remat)
+        remat=not args.no_remat, mesh=mesh)
 
     if args.synthetic_steps > 0:
         batches = synthetic_batches(args.image_size, args.global_batch_size,
-                                    args.seed)
+                                    args.seed, rank, world)
         max_steps = args.synthetic_steps
     elif args.data_path:
         batches = image_batches(args.data_path, args.image_size,
-                                args.global_batch_size, args.seed)
+                                args.global_batch_size, args.seed, rank,
+                                world, device)
         max_steps = args.max_steps
     else:
         raise SystemExit("need --data-path or --synthetic-steps")
@@ -199,6 +218,9 @@ def main(argv=None):
             logger.info(f"saved {path}")
 
     path = checkpoint.save_vq_step(ckpt_dir, state.step, state)
+    if mesh is not None:
+        checkpoint.save_full_model(
+            os.path.join(ckpt_dir, f"step_{state.step:08d}_model.pt"), state)
     if device.type == "cuda":
         logger.info(f"peak device memory "
                     f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} "

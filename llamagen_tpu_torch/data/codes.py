@@ -155,6 +155,8 @@ class PackedCodeDataset:
         while epochs < 0 or epoch < epochs:
             rng = np.random.RandomState(seed + epoch)
             order = rng.permutation(n)
+            # every host gets as many rows (and batches): hosts step alike
+            order = order[:n - n % self.num_hosts]
             order = order[self.host_id::self.num_hosts]
             hn = len(order)
             for start in range(0, hn - (batch_size - 1 if drop_remainder else 0),

@@ -105,7 +105,8 @@ class T2IDataset:
         epoch = 0
         while epochs < 0 or epoch < epochs:
             order = np.random.RandomState(seed + epoch).permutation(n)
-            order = order[host_id::num_hosts]
+            # every host gets as many rows (and batches): hosts step alike
+            order = order[:n - n % num_hosts][host_id::num_hosts]
             for start in range(0, len(order) - batch_size + 1, batch_size):
                 rows = [self[i] for i in order[start:start + batch_size]]
                 imgs, feats, masks, valids = zip(*rows)

@@ -17,8 +17,11 @@ mode. Its running buffers exist only so that upstream checkpoints load.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,12 +46,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     written.
 
     Written out in JAX `_batch_norm`'s order (the mean, then the mean of
-    the squared centred values) and differentiated by autograd."""
+    the squared centred values) and differentiated by autograd. With a
+    process `group` (`use_global_batch`) the statistics are the global
+    batch's, as JAX's sharded step computes them: each mean is a sum
+    all-reduced over the group's ranks (through the differentiable
+    all-reduce) over the global count."""
+
+    group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
-        var = ((xf - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+        dims = (0, 2, 3)
+        if self.group is None:
+            mean = xf.mean(dim=dims, keepdim=True)
+            var = ((xf - mean) ** 2).mean(dim=dims, keepdim=True)
+        else:
+            count = xf.numel() // xf.shape[1] * dist.get_world_size(
+                self.group)
+            mean = dist_fn.all_reduce(xf.sum(dim=dims, keepdim=True),
+                                      group=self.group) / count
+            var = dist_fn.all_reduce(((xf - mean) ** 2).sum(
+                dim=dims, keepdim=True), group=self.group) / count
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight.float()[:, None, None]
                 + self.bias.float()[:, None, None]).to(x.dtype)
@@ -182,6 +200,16 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             m.weight.uniform_(-3 ** 0.5 * bound, 3 ** 0.5 * bound,
                               generator=g)
             m.bias.uniform_(-bound, bound, generator=g)
+    return model
+
+
+def use_global_batch(model: nn.Module,
+                     group: Optional[dist.ProcessGroup]) -> nn.Module:
+    """Give every BatchNorm of `model` the process group whose ranks hold
+    the rest of the batch (None: this rank's rows alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
     return model
 
 

@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -174,10 +175,28 @@ class FeedForward(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, **kw):
         super().__init__()
+        self.cfg = cfg
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
         self.attention = Attention(cfg, **kw)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
         self.feed_forward = FeedForward(cfg, **kw)
+
+    def forward(self, h: torch.Tensor, freqs: torch.Tensor,
+                seed: Optional[int] = None,
+                drop_path_rate: Optional[float] = None,
+                remat: "Remat" = False) -> torch.Tensor:
+        """The training layer `_train_block`, recomputed in the backward
+        under `remat` ("full" or "save_attn"). A call through the module,
+        so that FSDP2 gathers this layer's parameters around it."""
+        if not remat:
+            return _train_block(self, h, freqs, self.cfg, seed,
+                                drop_path_rate)
+        ckpt = {}
+        if remat == "save_attn":
+            ckpt["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_attention)
+        return checkpoint(_train_block, self, h, freqs, self.cfg, seed,
+                          drop_path_rate, use_reentrant=False, **ckpt)
 
 
 class LabelEmbedder(nn.Module):
@@ -252,6 +271,12 @@ class Transformer(nn.Module):
                                ce.uncond_embedding.to(cond.dtype), cond)
         h = F.gelu(ce.cap_proj.fc1(cond), approximate="tanh")
         return ce.cap_proj.fc2(h)[:, :self.cfg.cls_token_num]
+
+    def forward(self, cond: torch.Tensor, idx: torch.Tensor,
+                **kw) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The training forward, `forward_train(self, cond, idx, **kw)`,
+        through the module (DDP and FSDP2 hook `__call__`)."""
+        return forward_train(self, cond, idx, **kw)
 
 
 @torch.no_grad()
@@ -614,7 +639,8 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   train: bool = True,
                   compute_dtype: torch.dtype = torch.float32,
-                  remat: Remat = False
+                  remat: Remat = False,
+                  group: Optional[dist.ProcessGroup] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Teacher-forced full-sequence forward (JAX `gpt.forward_train`).
 
@@ -635,14 +661,16 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
 
     t2i: the gradient stops at the left-pad rows (`_leading_zero_rows`):
     the values and the parameter gradients are JAX's, finite at any depth.
+
+    group: the process group whose ranks hold the other rows of the
+    global batch (their gradients are averaged). With `valid`, the loss
+    then divides by the weights summed over every rank (times the group's
+    size), so the mean of the ranks' losses and gradients is the global
+    batch's weighted mean, as one process computes it.
     """
     cfg = model.cfg
     if remat not in (False, "full", "save_attn"):
         raise ValueError(f"unknown remat {remat!r}")
-    ckpt = {}
-    if remat == "save_attn":
-        ckpt["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_attention)
     seeds: List[Optional[int]] = [None] * (cfg.n_layer + 2)
     if train and generator is not None:
         seeds = torch.randint(0, 2 ** 62, (cfg.n_layer + 2,),
@@ -664,11 +692,7 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
     for layer, seed, rate in zip(model.layers, seeds[2:], rates):
         if pads is not None:
             h = torch.where(pads, h.detach(), h)
-        if remat:
-            h = checkpoint(_train_block, layer, h, freqs, cfg, seed, rate,
-                           use_reentrant=False, **ckpt)
-        else:
-            h = _train_block(layer, h, freqs, cfg, seed, rate)
+        h = layer(h, freqs, seed, rate, remat)
     logits = model.output(model.norm(h)).float()
     # predictions for grid tokens start at the last condition position
     logits = logits[:, cfg.cls_token_num - 1:]
@@ -680,7 +704,12 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
             .reshape(targets.shape)
         if valid is not None:
             w = valid[:, None].float().expand_as(nll)
-            loss = (nll * w).sum() / w.sum().clamp_min(1.0)
+            total = w.sum()
+            if group is not None:  # the weights of every rank's rows
+                total = total.detach().clone()
+                dist.all_reduce(total, group=group)
+            world = 1 if group is None else dist.get_world_size(group)
+            loss = (nll * w).sum() * world / total.clamp_min(1.0)
         else:
             loss = nll.mean()
     return logits, loss

@@ -25,6 +25,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -270,21 +272,31 @@ def normalized_codebook(weight: torch.Tensor, cfg: VQConfig) -> torch.Tensor:
 
 
 def compute_entropy_loss(affinity: torch.Tensor,
-                         temperature: float = 0.01) -> torch.Tensor:
+                         temperature: float = 0.01,
+                         group: Optional[dist.ProcessGroup] = None
+                         ) -> torch.Tensor:
     """Codebook-entropy regulariser (JAX `compute_entropy_loss`): the mean
     per-sample entropy of softmax(affinity / T) less the entropy of the
-    batch's average distribution."""
+    batch's average distribution. With a process `group` the average is
+    over the global batch (a differentiable all-reduce of the sums), as
+    JAX's sharded step takes it; the per-sample term stays this rank's
+    mean, which the ranks' gradient mean averages."""
     flat = affinity.reshape(-1, affinity.shape[-1]) / temperature
     probs = torch.softmax(flat, dim=-1)
     log_probs = torch.log_softmax(flat + 1e-5, dim=-1)
-    avg_probs = probs.mean(dim=0)
+    if group is None:
+        avg_probs = probs.mean(dim=0)
+    else:
+        count = flat.shape[0] * dist.get_world_size(group)
+        avg_probs = dist_fn.all_reduce(probs.sum(dim=0), group=group) / count
     avg_entropy = -(avg_probs * torch.log(avg_probs + 1e-5)).sum()
     sample_entropy = -(probs * log_probs).sum(dim=-1).mean()
     return sample_entropy - avg_entropy
 
 
 def quantize(weight: torch.Tensor, z: torch.Tensor, cfg: VQConfig,
-             train: bool = False
+             train: bool = False,
+             group: Optional[dist.ProcessGroup] = None
              ) -> Tuple[torch.Tensor, Losses, torch.Tensor]:
     """Nearest-codebook quantisation with the straight-through estimator
     (JAX `quantize`). weight: the codebook [n, e_dim]; z: [B, h, w, e_dim]
@@ -294,7 +306,8 @@ def quantize(weight: torch.Tensor, z: torch.Tensor, cfg: VQConfig,
     the expanded form ||z||^2 + ||e||^2 - 2 z.e, the first index of the
     minimum. With `train`, the losses `vq` (codebook toward z), `commit`
     (beta * z toward the codebook) and `entropy` (ratio * the entropy loss
-    of -distances); otherwise {}."""
+    of -distances, over the global batch of `group`'s ranks); otherwise
+    {}."""
     zf = z.float()
     if cfg.codebook_l2_norm:
         zf = zf / torch.linalg.vector_norm(zf, dim=-1, keepdim=True)
@@ -310,7 +323,8 @@ def quantize(weight: torch.Tensor, z: torch.Tensor, cfg: VQConfig,
             "vq": ((z_q - zf.detach()) ** 2).mean(),
             "commit": cfg.commit_loss_beta
             * ((z_q.detach() - zf) ** 2).mean(),
-            "entropy": cfg.entropy_loss_ratio * compute_entropy_loss(-d)}
+            "entropy": cfg.entropy_loss_ratio * compute_entropy_loss(
+                -d, group=group if cfg.entropy_loss_ratio > 0 else None)}
     z_q = zf + (z_q - zf).detach()
     return z_q.to(z.dtype), losses, idx.reshape(z.shape[:-1])
 
@@ -342,18 +356,20 @@ class VQModel(nn.Module):
 
     def encode(self, x: torch.Tensor, train: bool = False,
                generator: Optional[torch.Generator] = None,
-               remat: bool = False
+               remat: bool = False,
+               group: Optional[dist.ProcessGroup] = None
                ) -> Tuple[torch.Tensor, Losses, torch.Tensor]:
         """Images NHWC [B, H, W, 3] in [-1, 1] -> (z_q [B, h, w, e_dim],
         losses, ids [B, h, w]), computed in x's dtype. Dropout runs only
-        with `train` and a `generator`; `remat` checkpoints the blocks."""
+        with `train` and a `generator`; `remat` checkpoints the blocks;
+        `group` makes the entropy loss the global batch's (`quantize`)."""
         if self.encoder is None:
             raise ValueError("this VQModel holds the decode half only "
                              "(VQModel(cfg, encoder=True) for encode)")
         gen = generator if train else None
         h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2), gen, remat))
         return quantize(self.quantize.embedding.weight,
-                        h.permute(0, 2, 3, 1), self.cfg, train)
+                        h.permute(0, 2, 3, 1), self.cfg, train, group)
 
     def decode(self, z_q: torch.Tensor,
                generator: Optional[torch.Generator] = None,
@@ -371,12 +387,13 @@ class VQModel(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 generator: Optional[torch.Generator] = None,
-                remat: bool = False
+                remat: bool = False,
+                group: Optional[dist.ProcessGroup] = None
                 ) -> Tuple[torch.Tensor, Losses, torch.Tensor]:
         """Encode and decode: (reconstruction NHWC, losses, ids). The
         encoder draws its dropout seeds from `generator` first, then the
         decoder."""
-        z_q, losses, idx = self.encode(x, train, generator, remat)
+        z_q, losses, idx = self.encode(x, train, generator, remat, group)
         return (self.decode(z_q, generator if train else None, remat),
                 losses, idx)
 

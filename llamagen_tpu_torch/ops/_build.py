@@ -16,6 +16,7 @@ build raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -60,12 +61,23 @@ def build() -> Path:
     Each `.cu` file is compiled to an object by its own `nvcc`, all started
     together, then the objects are linked into the library. The compilers'
     output (`-Xptxas -v`: registers, shared memory and spills per kernel)
-    is kept beside the library as `<name>.log`.
+    is kept beside the library as `<name>.log`. A file lock makes the
+    processes of one machine (the ranks of a training run) build once.
     """
     out = BUILD_DIR / f"libllamagen_kernels_{_source_hash(_sources())}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # ranks of one machine build once: the first takes the lock and
+    # builds, the others wait for it and find the library
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, jobs = [], []
@@ -91,7 +103,6 @@ def build() -> Path:
                                f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
         out.with_suffix(".log").write_text("\n".join(t for _, t in logs))
         os.replace(lib, out)
-    return out
 
 
 @functools.lru_cache(maxsize=None)

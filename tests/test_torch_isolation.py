@@ -42,14 +42,17 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 42  # every module was walked, the VQ-GAN's too
+    assert len(names) >= 54  # every module was walked, parallel/'s too
     assert {"llamagen_tpu_torch.text.t5", "llamagen_tpu_torch.text.cleaning",
             "llamagen_tpu_torch.cli.sample_t2i",
             "llamagen_tpu_torch.cli.extract_t5_features",
             "llamagen_tpu_torch.models.lpips",
             "llamagen_tpu_torch.models.discriminator",
             "llamagen_tpu_torch.train.vq",
-            "llamagen_tpu_torch.cli.train_vq"} <= names
+            "llamagen_tpu_torch.cli.train_vq",
+            "llamagen_tpu_torch.parallel.distributed",
+            "llamagen_tpu_torch.parallel.mesh",
+            "llamagen_tpu_torch.parallel.partition"} <= names
 
 
 def _fields(cfg):

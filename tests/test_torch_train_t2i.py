@@ -275,8 +275,11 @@ def test_train_t2i_cli_synthetic(tmp_path):
 
 
 def test_train_t2i_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="ranks"):  # one process: world 1
         train_t2i.main(["--synthetic-steps", "1", "--dp", "2",
+                        "--device", "cpu", "--results-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        train_t2i.main(["--synthetic-steps", "1", "--tp", "2",
                         "--device", "cpu", "--results-dir", str(tmp_path)])
     with pytest.raises(SystemExit):
         train_t2i.main(["--gpt-model", "GPT-nano", "--image-size", "32",

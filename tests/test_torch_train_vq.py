@@ -367,7 +367,7 @@ def test_train_vq_cli_on_cpu(tmp_path):
         assert torch.equal(tok.state_dict()[name], p), name
     with pytest.raises(SystemExit):
         train_vq.main(args + ["--vgg-weights", str(tmp_path / "vgg16.pth")])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ranks"):  # one process: world 1
         train_vq.main(args + ["--dp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
