@@ -173,6 +173,23 @@ Phases, each of which raises on a failed check (exit code != 0):
    DP; everything against one process on the same global batch
    (TWO_RANK_BOUNDS, VQ_CPU_BOUNDS, VQ_RATIO_BOUND; the usage window
    equal after the first step).
+35. GPTQ + AWQ at GPT-L 384 width, 12 layers: `tools quantize-ckpt --mode
+   w4 --method gptq --quantize-head` on the card (32 calibration samples;
+   the CLI's default is 128), without and with `--awq`, each timed; every
+   matrix of the first and the last layer with a smaller H-weighted error
+   tr(dW^T H dW) than round-to-nearest's; layer 0's wqkv levels equal to
+   the CPU port's walk on the same W and H (>= 99.9 %, scales 1e-5).
+36. The speculative serving engine (`serve/spec_engine.py`): the W8A16
+   target (layers and int8 head) of phase 35's weights, its GPTQ W4 g128
+   self-draft, 8 pairs, k 4, bf16 caches, 12 requests (4 reuse a slot)
+   with mixed cfg, temperature, top-k and two greedy rows; every
+   admission and chunk under sync debug "error"; counters exactly K5
+   rounds * 12 * (k + 2), K3 rounds * 5 * 12 * (k + 1), K2 rounds * (61 +
+   k + 1) + admissions * 62; img/s, ms per round, tokens per round, the
+   acceptance rate and the device's busy share over 4 rounds.
+37. Greedy f32 speculative engine == `generate` (and == `ServeEngine`):
+   c2i at GPT-L width, 2 layers, per-request cfg 1.5 / 2.0 / 4.0 / 3.0;
+   t2i at GPT-XL width, 2 layers, pads 0 / 60 / 100 / 119.
 
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
@@ -183,9 +200,9 @@ Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
 last line is `{"ok": true, "device": {...}}`; the line before it is the
 kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
-library time; then K1, K2 and K5 again at the t2i sampling shapes and K4
-at the t2i training shape), the one before that the card's name and power
-limit.
+library time; then K1, K2 and K5 again at the t2i sampling shapes, K4 at
+the t2i training shape, and K2, K3 and K5 on the speculative engine's
+path), the one before that the card's name and power limit.
 Needs a CUDA device; runs nothing without one.
 """
 
@@ -243,6 +260,18 @@ VQ_GAN_BATCH, VQ_GAN_STEPS, VQ_GAN_STYLEGAN_STEPS = 32, 10, 3
 VQ_CPU_BOUNDS = {"metric": (3e-4, 1e-6), "vq": 5e-3, "disc": 5e-2}
 GPT_L_MATMULS = {"wqkv": (1024, 3072), "wo": (1024, 1024),
                  "w1": (1024, 2816), "w3": (1024, 2816), "w2": (2816, 1024)}
+# GPTQ + AWQ and the speculative engine: GPT-L 384 width cut to
+# SPEC_LAYERS layers (a zoo entry of this script's, SPEC_MODEL); GPTQ
+# calibrates on GPTQ_CALIB random samples (the CLI's default is 128); the
+# engine: a W8A16 target (layers and int8 head), its GPTQ W4 g128 copy
+# drafting (int8 head), 8 pairs, k 4, bf16 caches, 12 requests (4 reuse a
+# slot); the verify's layer matmuls take 2P * (k + 1) = 80 rows; K5's
+# timing gives the pairs these positions (cond and uncond rows alike)
+SPEC_MODEL, GPTQ_CALIB = f"GPT-L-{SPEC_LAYERS}", 32
+SPEC_ENGINE_PAIRS, SPEC_ENGINE_REQUESTS = 8, 12
+SPEC_ENGINE_ROWS = 2 * SPEC_ENGINE_PAIRS * (SPEC_K + 1)
+SPEC_ENGINE_CACHE = 1 + TOKENS + (SPEC_K + 1) + 16  # the engine's rows
+SPEC_ENGINE_POS = tuple(32 + 72 * i for i in range(SPEC_ENGINE_PAIRS))
 
 
 def log(msg):
@@ -567,8 +596,9 @@ GPT_XL_MATMULS = {"XL wqkv": (1280, 3840), "XL wo": (1280, 1280),
 
 def check_int8_matmul(dev):
     """K2 against int8_matmul_ref at the GPT-L, GPT-3B and GPT-XL layer
-    shapes and the GPT-L and GPT-XL int8 heads, B 16, 1 and 128 (bf16 x)
-    and B 80 (f32 x), the GPT-XL layer shapes also at the t2i engine's
+    shapes and the GPT-L and GPT-XL int8 heads, B 16, 1, 128 and 80 (the
+    speculative engine's verify; bf16 x) and B 80 (f32 x), the GPT-XL
+    layer shapes also at the t2i engine's
     admission prefill (2 * 8 pairs * 120 = 1,920 rows: 20 passes of 96;
     its head runs on the last position only): one bf16 ulp of the
     largest output, f32 1e-5 of it. Then the times (`time_int8_matmul`)."""
@@ -583,7 +613,8 @@ def check_int8_matmul(dev):
         w_q, w_s = quantize_weight(
             torch.randn(k, n, generator=g, device=dev) * 0.02)
         rows = ((16, torch.bfloat16), (1, torch.bfloat16),
-                (ENGINE_ROWS, torch.bfloat16), (80, torch.float32))
+                (ENGINE_ROWS, torch.bfloat16), (80, torch.float32),
+                (SPEC_ENGINE_ROWS, torch.bfloat16))
         if name in GPT_XL_MATMULS and name != "XL head":
             rows += ((T2I_ADMIT_ROWS, torch.bfloat16),
                      (T2I_ADMIT_ROWS, torch.float32))
@@ -612,6 +643,9 @@ def check_int8_matmul(dev):
     timings.update(time_int8_matmul(dev, b=T2I_ADMIT_ROWS, shapes={
         k: v for k, v in GPT_XL_MATMULS.items() if k != "XL head"},
         tag=" t2i"))  # the admission's head runs on its last rows only
+    # the speculative engine's verify: 2P * (k + 1) = 80 rows
+    timings.update(time_int8_matmul(dev, b=SPEC_ENGINE_ROWS, shapes={
+        "wqkv": GPT_L_MATMULS["wqkv"]}, tag=" spec"))
     return worst, timings
 
 
@@ -1042,6 +1076,10 @@ def check_chunk_attention(dev):
     timings = time_chunk_attention(dev)
     timings.update(time_chunk_attention(dev, cs=(5,), b=8, h=20, s=1280,
                                         pos=632, pads=T2I_PADS, tag=" t2i"))
+    # the speculative engine's verify: 8 pairs at their own positions
+    timings.update(time_chunk_attention(
+        dev, cs=(SPEC_K + 1,), s=SPEC_ENGINE_CACHE, pos=SPEC_ENGINE_POS * 2,
+        tag=" spec"))
     return worst, timings
 
 
@@ -1049,11 +1087,12 @@ def time_chunk_attention(dev, full=True, cs=(5, 1, 8), b=16, h=16, s=640,
                          pos=288, pads=None, tag=""):
     """K5 per call at the main path's mean position (pos 288), B 16, 16
     heads x 64, S 640, bf16, C 5, 1 and 8, one buffer set per layer; `b`,
-    `h`, `s`, `pos` and `pads` (left pads taken by the rows in turn) give
-    the t2i shape (keys "<C> t2i"). With `full`, also the plain version,
-    the bound, SDPA with the same row mask over the cache, and SDPA after
-    the cache write it does not make (`kv[:, pos:pos + C] = kv_new`, K5's
-    whole work)."""
+    `h`, `s`, `pos` (an int, or one position per row: the speculative
+    engine's slots) and `pads` (left pads taken by the rows in turn) give
+    the other shapes (keys "<C><tag>"). With `full`, also the plain
+    version, the bound, SDPA with the same row mask over the cache, and
+    SDPA after the cache write it does not make (`kv[:, pos:pos + C] =
+    kv_new`, K5's whole work)."""
     from llamagen_tpu_torch.ops.chunk_attention import (
         chunk_decode_attention, chunk_decode_attention_ref)
     timings = {}
@@ -1061,26 +1100,32 @@ def time_chunk_attention(dev, full=True, cs=(5, 1, 8), b=16, h=16, s=640,
                                           for i in range(b)]
     pad_t = None if pads is None else torch.tensor(pad_l, dtype=torch.int32,
                                                    device=dev)
+    per_row = not isinstance(pos, int)
+    pos_l = list(pos) if per_row else [pos] * b
+    pos_t = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    kpos = pos_t if per_row else pos  # what the timed call is given
+    where = "per-slot positions" if per_row else f"pos {pos}"
     for c in cs:
         key = c if not tag else f"{c}{tag}"
         states = [chunk_state(dev, b, h, h, s, c, torch.bfloat16, 100 + l)
                   for l in range(24)]
         ms = graph_ms([lambda st=st: chunk_decode_attention(
-            st[0], st[1], st[2], pos, h, pad_t) for st in states])
+            st[0], st[1], st[2], kpos, h, pad_t) for st in states])
         if not full:
             timings[key] = dict(ms=ms)
-            log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S "
+            log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, {where}, S "
                 f"{s}: kernel {ms:.4f} ms")
             del states
             continue
         plain = graph_ms([lambda st=st: chunk_decode_attention_ref(
-            st[0], st[1], st[2], pos, h, pad_t) for st in states])
+            st[0], st[1], st[2], kpos, h, pad_t) for st in states])
         q, kv_new, kv = states[0]
         row = kv.shape[2] * kv.element_size()
         bnd_ms, by = bound(
-            nbytes(q, kv_new, q) + sum((pos + c - pd) * row for pd in pad_l)
+            nbytes(q, kv_new, q)
+            + sum((p + c - pd) * row for p, pd in zip(pos_l, pad_l))
             + b * c * row,
-            sum(4 * h * 64 * c * (pos + c - pd) for pd in pad_l))
+            sum(4 * h * 64 * c * (p + c - pd) for p, pd in zip(pos_l, pad_l)))
         f = h * 64
         qs = [st[0].view(b, c, h, 64).transpose(1, 2) for st in states]
         ks = [st[2][..., :f].view(b, s, h, 64).transpose(1, 2)
@@ -1088,17 +1133,21 @@ def time_chunk_attention(dev, full=True, cs=(5, 1, 8), b=16, h=16, s=640,
         vs = [st[2][..., f:].view(b, s, h, 64).transpose(1, 2)
               for st in states]
         cols = torch.arange(s, device=dev)
-        mask = ((cols[None, None, :]
-                 <= pos + torch.arange(c, device=dev)[None, :, None])
+        rows = pos_t.long()[:, None] + torch.arange(c, device=dev)  # [B, C]
+        mask = ((cols[None, None, :] <= rows[:, :, None])
                 & (cols[None, None, :] >= torch.tensor(
                     pad_l, device=dev)[:, None, None])).view(b, 1, c, s)
         lib = library_time("K5 library (SDPA)", lambda: graph_ms(
             [lambda i=i: F.scaled_dot_product_attention(
                 qs[i], ks[i], vs[i], attn_mask=mask)
              for i in range(len(states))]))
+        batch = torch.arange(b, device=dev)[:, None]
 
         def write_then_sdpa(i):
-            states[i][2][:, pos:pos + c] = states[i][1]
+            if per_row:
+                states[i][2][batch, rows] = states[i][1]
+            else:
+                states[i][2][:, pos:pos + c] = states[i][1]
             return F.scaled_dot_product_attention(qs[i], ks[i], vs[i],
                                                   attn_mask=mask)
         lib_write = library_time("K5 library (cache write + SDPA)",
@@ -1107,7 +1156,7 @@ def time_chunk_attention(dev, full=True, cs=(5, 1, 8), b=16, h=16, s=640,
                                       for i in range(len(states))]))
         timings[key] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
                             library=lib, library_write=lib_write)
-        log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, pos {pos}, S {s}"
+        log(f"K5 time, C {c}, bf16 cache, B {b}, H {h}, {where}, S {s}"
             f"{'' if pads is None else f', prefix_pad {pads} in turn'}: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} "
             f"ms ({by}), SDPA with the row mask over the cache "
@@ -1860,6 +1909,299 @@ def run_t2i_cli(dev):
             or not np.isfinite(res.images).all() or not png_ok \
             or res.tokens.min() < 0 or res.tokens.max() >= 16384:
         raise AssertionError("t2i CLI output is not 4 finite 256 px images")
+
+
+# ---------------------------------------------------------------------------
+# Phases 35-37: GPTQ + AWQ, the speculative engine, greedy f32 engine
+# ---------------------------------------------------------------------------
+
+
+def spec_model_entry():
+    """SPEC_MODEL in the port's zoo (GPT-L's widths at SPEC_LAYERS layers),
+    so that the CLIs take the cut model by name."""
+    from llamagen_tpu_torch import config
+    config.GPT_CONFIGS[SPEC_MODEL] = lambda **kw: config.replace(
+        config.gpt_config("GPT-L", **kw), n_layer=SPEC_LAYERS)
+
+
+def weighted_error(dw, h):
+    """tr(dW^T H dW) in f64: a quantised matrix's error on the calibration
+    inputs whose Hessian is h."""
+    dw, h = dw.double(), h.double()
+    return float(torch.einsum("kn,kj,jn->", dw, h, dw))
+
+
+def run_gptq_awq(dev):
+    """`tools quantize-ckpt --mode w4 --method gptq --quantize-head`
+    (GPTQ_CALIB random calibration samples, g128) through the CLI on the
+    card, on random GPT-L 384 weights at SPEC_LAYERS layers, without and
+    with --awq; each run's seconds. Checks: every matrix of the first and
+    the last layer has a smaller H-weighted error tr(dW^T H dW) than
+    round-to-nearest at the same grid (H: the Hessian GPTQ's walk used,
+    kept by `cmd_quantize_ckpt`);
+    layer 0's wqkv levels on the card equal the CPU port's walk on the
+    same W and H on >= 99.9 % of the entries and its scales within 1e-5
+    relative (tests/test_torch_gptq.py's tolerances); the AWQ + GPTQ
+    model's teacher-forced logits are finite. Returns the GPTQ model (the
+    engine's W4 draft)."""
+    import argparse
+    from llamagen_tpu_torch.cli import tools
+    from llamagen_tpu_torch.cli.common import load_gpt
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.ops import gptq
+    from llamagen_tpu_torch.ops.w4_matmul import _levels, pack_w4, w4_dequant
+    spec_model_entry()
+    src = gpt_model(dev, seed=71, n_layer=SPEC_LAYERS)
+    models, hess = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "src.pt")
+        torch.save(src.state_dict(), ckpt)
+        for awq in (False, True):
+            path = os.path.join(tmp, "awq_gptq.pt" if awq else "gptq.pt")
+            t0 = time.time()
+            args = tools.parse_args(
+                ["quantize-ckpt", "--in", ckpt, "--out", path, "--mode",
+                 "w4", "--method", "gptq", "--quantize-head", "--gpt-model",
+                 SPEC_MODEL, "--image-size", "384", "--calib-samples",
+                 str(GPTQ_CALIB), "--device", "cuda"]
+                + (["--awq"] if awq else []))
+            # the plain GPTQ run keeps the Hessians its walk used
+            tools.cmd_quantize_ckpt(args, hessians=None if awq else hess)
+            torch.cuda.synchronize()
+            log(f"CLI quantize-ckpt --method gptq{' --awq' if awq else ''} "
+                f"(GPT-L 384 width, {SPEC_LAYERS} layers, g128, int8 head, "
+                f"{GPTQ_CALIB} calibration samples; the CLI's default is "
+                f"128): {time.time() - t0:.1f} s")
+            models[awq] = load_gpt(path, SPEC_MODEL, 384, 16, torch.bfloat16,
+                                   dev)
+    model = models[False]
+    for l in (0, SPEC_LAYERS - 1):
+        for key, lin in gptq.layer_linears(model.layers[l]).items():
+            w = gptq.layer_linears(src.layers[l])[key].weight.detach().t() \
+                .float()
+            err = weighted_error(
+                w4_dequant(lin.weight_w4b, lin.weight_w4s) - w, hess[l][key])
+            rtn = weighted_error(w4_dequant(*pack_w4(w)) - w, hess[l][key])
+            log(f"GPTQ layer {l} {key}: tr(dW^T H dW) {err:.5g}, "
+                f"round-to-nearest {rtn:.5g} ({err / rtn:.3f}x)")
+            if not err < rtn:
+                raise AssertionError(f"GPTQ's error at layer {l} {key} is "
+                                     f"not below round-to-nearest's")
+    lin = model.layers[0].attention.wqkv
+    t0 = time.time()
+    cpu_b, cpu_s = gptq.gptq_quantize_matrix(
+        src.layers[0].attention.wqkv.weight.detach().t().float().cpu(),
+        hess[0]["wqkv"].cpu())
+    lv, cpu_lv = _levels(lin.weight_w4b).cpu(), _levels(cpu_b)
+    differ = int((lv != cpu_lv).sum())
+    rel = ((lin.weight_w4s.cpu() - cpu_s).abs() / cpu_s.abs()).max().item()
+    log(f"GPTQ layer 0 wqkv, card vs the CPU port's walk on the same W and H"
+        f" ({time.time() - t0:.1f} s on the CPU): {differ} of {lv.numel()} "
+        f"levels differ (tol {int(1e-3 * lv.numel())}), scales max relative "
+        f"difference {rel:.3g} (tol 1e-05)")
+    if differ > 1e-3 * lv.numel() or not rel <= 1e-5:
+        raise AssertionError("the card's GPTQ levels disagree with the CPU's")
+    cond, tokens = tools.calibration_set(argparse.Namespace(
+        calib_seed=0, calib_samples=4, calib_codes=None), model.cfg, dev)
+    logits, _ = gpt.forward_train(models[True], cond, tokens[:, :-1],
+                                  train=False, compute_dtype=torch.bfloat16)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("the AWQ + GPTQ model's logits are not finite")
+    log(f"AWQ + GPTQ model: teacher-forced logits {tuple(logits.shape)}, "
+        f"finite")
+    return model
+
+
+def device_busy(fn, units):
+    """fn() (units of work, ending in no synchronise) run twice: on the
+    host clock, then under `torch.profiler`. (wall ms, device busy ms) per
+    unit; busy = the union of the kernels' intervals (None where the
+    profiler sees no kernel)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3 / units
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall, (busy / 1e3 / units if spans else None)
+
+
+def run_spec_engine(dev, draft):
+    """The speculative engine: a W8A16 target (layers and int8 head; GPT-L
+    384 width, SPEC_LAYERS layers, the weights phase 35 quantised) and its
+    GPTQ W4 g128 self-draft (int8 head), 8 pairs, k 4, bf16 caches; 12
+    requests (4 reuse a slot) with cfg 1.5 / 2.0 / 4.0, temperatures 1.0
+    and 0.8, top-k 1000 on three and two greedy rows. Every admission and
+    chunk runs under `torch.cuda.set_sync_debug_mode("error")`; the host
+    reads n_generated once a chunk. Counters exactly: K5 rounds * L *
+    (k + 2) (k + 1 draft steps at C 1 and the verify at C k + 1, each
+    layer), K3 rounds * 5L * (k + 1) (the draft's layer matmuls at 2P
+    rows), K2 rounds * (5L + 1 + k + 1) (the verify's layers at 2P(k + 1)
+    rows and head, the draft's int8 head) + admissions * (5L + 2) (the
+    target's prefill and head, the draft's head: the draft's W4 layers
+    take the dequantised product at rank 3). Every request completes,
+    every id in range. Prints img/s, ms per round, rounds, tokens per
+    round and slot, the acceptance rate, and the device busy share of 4
+    rounds at capacity."""
+    from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                     quantize_gpt_params)
+    from llamagen_tpu_torch.ops.w4_matmul import w4_matmul
+    from llamagen_tpu_torch.serve.engine import SamplingParams
+    from llamagen_tpu_torch.serve.spec_engine import SpecEngine
+    target = quantize_gpt_params(gpt_model(dev, seed=71, n_layer=SPEC_LAYERS),
+                                 quantize_head=True)
+    kw = dict(num_pairs=SPEC_ENGINE_PAIRS, k=SPEC_K,
+              compute_dtype=torch.bfloat16)
+    SpecEngine(target, draft, max_new_tokens=16, **kw).generate(
+        range(SPEC_ENGINE_PAIRS))  # warm-up: allocator, first launches
+    torch.cuda.synchronize()
+
+    eng = SpecEngine(target, draft, max_new_tokens=TOKENS, **kw)
+    sps = [SamplingParams(cfg_scale=(1.5, 2.0, 4.0)[i % 3],
+                          temperature=0.0 if i in (2, 9) else (1.0, 0.8)[i % 2],
+                          top_k=1000 if i in (1, 6, 11) else 0)
+           for i in range(SPEC_ENGINE_REQUESTS)]
+    int8_matmul.launches = w4_matmul.launches = 0
+    chunk_decode_attention.launches = 0
+    t0 = time.time()
+    reqs = [eng.submit(i * 83 % 1000, sp=sp) for i, sp in enumerate(sps)]
+    chunks = 0
+    while not eng.pending.empty() \
+            or any(r is not None for r in eng.slot_request):
+        torch.cuda.set_sync_debug_mode("error")
+        try:  # no device-to-host read in an admission or a chunk
+            eng._admit()
+            ran = eng._run_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if ran:
+            eng._sync()
+        eng._harvest()
+        chunks += 1
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k2, k3, k5 = (int8_matmul.launches, w4_matmul.launches,
+                  chunk_decode_attention.launches)
+    rounds, adm, layers = eng.rounds, eng.admissions, SPEC_LAYERS
+    st = eng.stats()
+    log(f"speculative engine (GPT-L 384 width, {layers} layers, W8A16 target"
+        f" + int8 head, GPTQ W4 g128 self-draft + int8 head, "
+        f"{SPEC_ENGINE_PAIRS} pairs, k {SPEC_K}, bf16 caches, "
+        f"{SPEC_ENGINE_REQUESTS} requests, cfg 1.5/2.0/4.0, 2 greedy, 3 "
+        f"with top-k 1000): {secs:.3f} s = {SPEC_ENGINE_REQUESTS / secs:.3f}"
+        f" img/s, {rounds} rounds in {chunks} chunks = "
+        f"{1e3 * secs / rounds:.3f} ms/round, {adm} admissions, "
+        f"{st['tokens_per_round_per_slot']:.3f} tokens/round/slot, "
+        f"acceptance {st['acceptance_rate']:.3f}; TTFT p50 "
+        f"{st['ttft_p50_s']:.3f} s, e2e p50 {st['e2e_latency_p50_s']:.3f} s;"
+        f" launches int8_matmul {k2}, w4_matmul {k3}, chunk_decode_attention"
+        f" {k5}; every admission and chunk under sync debug mode 'error'")
+    log(f"speculative engine stats: {json.dumps(st)}")
+    want = (rounds * (5 * layers + 1 + SPEC_K + 1) + adm * (5 * layers + 2),
+            rounds * 5 * layers * (SPEC_K + 1),
+            rounds * layers * (SPEC_K + 2))
+    if (k2, k3, k5) != want:
+        raise AssertionError(f"launch counts {(k2, k3, k5)}: expected "
+                             f"{want}")
+    tokens = np.stack([r.result for r in reqs])
+    if tokens.shape != (SPEC_ENGINE_REQUESTS, TOKENS) or tokens.min() < 0 \
+            or tokens.max() >= target.cfg.vocab_size \
+            or st["completed"] != SPEC_ENGINE_REQUESTS:
+        raise AssertionError(f"bad engine results {tokens.shape}, "
+                             f"completed {st['completed']}")
+    # the device's busy share over 4 rounds with every slot busy
+    for i in range(SPEC_ENGINE_PAIRS):
+        eng.submit(i * 7)
+    eng._admit()
+    wall, busy = device_busy(lambda: eng.step_fn(eng.state, 4, True), 4)
+    log(f"speculative engine, 4 rounds at capacity: {wall:.3f} ms/round "
+        f"wall, device busy "
+        + ("not measured (no kernel in the profile)" if busy is None else
+           f"{busy:.3f} ms/round = {100 * busy / wall:.1f} % busy, "
+           f"{100 * (1 - busy / wall):.1f} % idle"))
+    return {"int8_matmul": k2, "w4_matmul": k3, "chunk_decode_attention": k5,
+            "rounds": rounds, "img_s": SPEC_ENGINE_REQUESTS / secs}
+
+
+def run_spec_engine_greedy_f32(dev):
+    """Greedy f32 engine tokens equal `generate`'s: c2i at GPT-L width cut
+    to 2 layers, a W4 copy drafting, k 4, 2 pairs, 4 requests with cfg
+    1.5 / 2.0 / 4.0 / 3.0 (the last two reuse slots), 64 tokens, against
+    `generate` per request and the port's `ServeEngine` on the same
+    requests; t2i at GPT-XL width cut to 2 layers, 4 captions padded by 0,
+    60, 100 and 119, CFG 7.5, 48 tokens, against `generate(emb_masks=)`.
+    K5's f32 entry at per-slot positions (and `prefix_pad`)."""
+    import copy
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.ops.w4_matmul import quantize_gpt_params_w4k
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    from llamagen_tpu_torch.serve.spec_engine import SpecEngine
+    f32 = dict(compute_dtype=torch.float32)
+    target = gpt_model(dev, seed=81, dtype=torch.float32, n_layer=2)
+    draft = quantize_gpt_params_w4k(copy.deepcopy(target))
+    labels, scales = [207, 360, 387, 974], [1.5, 2.0, 4.0, 3.0]
+    sps = [SamplingParams(cfg_scale=s, temperature=0.0) for s in scales]
+
+    def serve(eng):
+        reqs = [eng.submit(l, sp=sp) for l, sp in zip(labels, sps)]
+        eng.run_until_idle()
+        return np.stack([r.result for r in reqs])
+
+    eng = SpecEngine(target, draft, num_pairs=2, max_new_tokens=64, k=SPEC_K,
+                     **f32)
+    got = serve(eng)
+    base = serve(ServeEngine(target, num_pairs=2, max_new_tokens=64,
+                             chunk=16, **f32))
+    ref = np.stack([generate(target, torch.tensor([l], device=dev),
+                             max_new_tokens=64, cfg_scale=s,
+                             sample_logits=False, cache_dtype=torch.float32,
+                             **f32)[0].cpu().numpy()
+                    for l, s in zip(labels, scales)])
+    same = np.array_equal(got, ref) and np.array_equal(got, base)
+    log(f"greedy f32 speculative engine (GPT-L width, 2 layers, W4 "
+        f"self-draft, k {SPEC_K}, 2 pairs, 4 requests, cfg {scales}, 64 "
+        f"tokens) == generate == ServeEngine: {same} ({eng.rounds} rounds, "
+        f"acceptance {eng.stats()['acceptance_rate']:.3f}, "
+        f"{len(np.unique(ref))} distinct tokens)")
+    if not same:
+        raise AssertionError(f"greedy engine tokens differ: "
+                             f"{np.argwhere(got != ref)[:5].tolist()}, "
+                             f"{np.argwhere(got != base)[:5].tolist()}")
+
+    target = t2i_model(dev, 256, seed=85, dtype=torch.float32, n_layer=2)
+    draft = quantize_gpt_params_w4k(copy.deepcopy(target))
+    caps, masks = t2i_captions(dev, T2I_PADS, seed=86, dtype=torch.float32)
+    eng = SpecEngine(target, draft, num_pairs=2, max_new_tokens=48, k=SPEC_K,
+                     sampling_params=SamplingParams(cfg_scale=T2I_CFG,
+                                                    temperature=0.0), **f32)
+    got = eng.generate_t2i(caps.cpu(), masks.cpu())
+    ref = generate(target, caps, emb_masks=masks, max_new_tokens=48,
+                   cfg_scale=T2I_CFG, sample_logits=False,
+                   cache_dtype=torch.float32, **f32).cpu().numpy()
+    same = np.array_equal(got, ref)
+    log(f"greedy f32 t2i speculative engine (GPT-XL width, 2 layers, W4 "
+        f"self-draft, 2 pairs, pads {T2I_PADS}, 48 tokens) == generate: "
+        f"{same} ({eng.rounds} rounds, {eng.admissions} admissions, "
+        f"{len(np.unique(ref))} distinct tokens)")
+    if not same:
+        raise AssertionError(f"greedy t2i engine tokens differ at "
+                             f"{np.argwhere(got != ref)[:5].tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -3206,6 +3548,12 @@ def main():
     phase("training across ranks, one NCCL rank",
           lambda d: run_world1(d, train_stats, t2i_stats))
     phase("training across ranks, two gloo ranks on the card", run_two_ranks)
+    draft = phase("GPTQ + AWQ, GPT-L width", run_gptq_awq)
+    spec_engine = phase("speculative engine",
+                        lambda d: run_spec_engine(d, draft))
+    del draft
+    phase("greedy f32 speculative engine == generate",
+          run_spec_engine_greedy_f32)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):
@@ -3274,6 +3622,22 @@ def main():
           for name, key, line in (("train_attention_fwd", "fwd", 195),
                                   ("train_attention_dq", "dq", 213),
                                   ("train_attention_dkdv", "dkdv", 213))),
+        # the speculative engine: K2 at the verify's 80 rows, K3 in the
+        # GPTQ draft (pack_w4's layout: K3's B 16 g128 time), K5 at the
+        # slots' own positions
+        entry("int8_matmul [spec engine verify: GPT-L wqkv, "
+              f"{SPEC_ENGINE_ROWS} rows]", "int8_matmul.cu",
+              "llamagen_tpu/ops/quant_matmul.py:62",
+              spec_engine["int8_matmul"], k2_err,
+              k2_t[f"wqkv B{SPEC_ENGINE_ROWS} spec"]),
+        entry("w4_matmul [spec engine draft: GPTQ g128, 16 rows]",
+              "w4_matmul.cu", "llamagen_tpu/ops/w4_matmul.py:315",
+              spec_engine["w4_matmul"], k3_err, k3_t[("wqkv", 16)]),
+        entry(f"chunk_decode_attention [spec engine: per-slot positions, C "
+              f"{SPEC_K + 1}]", "chunk_attention.cu",
+              "llamagen_tpu/ops/chunk_attention.py:315",
+              spec_engine["chunk_decode_attention"], k5_err,
+              k5_t[f"{SPEC_K + 1} spec"]),
     ]}
     print(smi)
     print(json.dumps(record))

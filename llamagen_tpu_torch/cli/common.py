@@ -95,7 +95,7 @@ def _load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
         raise KeyError(f"checkpoint lacks {missing[:8]}")
 
 
-def _shape_quantized_linears(model: gpt_lib.Transformer,
+def shape_quantized_linears(model: gpt_lib.Transformer,
                              sd: Dict[str, torch.Tensor]) -> None:
     """Each `Linear` whose checkpoint entry is quantised (W8A16 `weight_q` /
     `weight_scale` or W4 `weight_w4b` / `weight_w4s`, as `cli/tools.py
@@ -131,7 +131,7 @@ def load_gpt(gpt_ckpt: Optional[str], gpt_model: str, image_size: int,
         gpt_lib.init_weights(model, seed=0)
     else:
         sd = _load(gpt_ckpt, keep_dtypes=True)
-        _shape_quantized_linears(model, sd)
+        shape_quantized_linears(model, sd)
         _load_into(model, sd)
     return model.eval()
 

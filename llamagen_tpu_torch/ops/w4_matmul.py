@@ -160,11 +160,11 @@ def w4_dequant(blocks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     if seg is None:
         w = lv * scales
     else:
-        segs = _segments(k2, seg)
-        reps = torch.cat([torch.full((rl,), h * len(segs) + g)
-                          for h in range(2)
-                          for g, (_, rl) in enumerate(segs)]).to(
-                              scales.device)
+        # row r's scale row: its half's groups, then its group in the half
+        # (the ragged tail is the last); made on the device, so that no
+        # host copy synchronises
+        r = torch.arange(2 * k2, device=scales.device)
+        reps = r // k2 * len(_segments(k2, seg)) + r % k2 // seg
         w = lv * scales[:, reps, :]
     return w.permute(1, 0, 2).reshape(2 * k2, nb * bn)
 

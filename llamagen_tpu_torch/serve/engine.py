@@ -35,7 +35,7 @@ from __future__ import annotations
 import queue
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -240,42 +240,61 @@ def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
 
 
 class Admitted(NamedTuple):
-    """A t2i admission's results for A pairs, on the engine's device."""
+    """An admission's results for A pairs, on the engine's device."""
     firsts: torch.Tensor     # [A] int64 first tokens
     rows: List[torch.Tensor]  # per layer [A, 2, T, 2F] (cond, uncond)
-    pads: torch.Tensor       # [A] int32 left-pad counts
+    pads: torch.Tensor       # [A] int32 left-pad counts (c2i: 0)
+
+
+def prefill_pairs(model: gpt.Transformer, cond: torch.Tensor,
+                  emb_masks: Optional[torch.Tensor],
+                  compute_dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+    """The condition prefill of A pairs in ONE forward ([2A, T]: cond rows
+    first, the null condition's second) into a staging cache: class labels
+    [A] (c2i), or captions [A, T, caption_dim] with their left-pad masks
+    emb_masks [A, T] (t2i). Returns (f32 logits [2A, V] at the last
+    position, cache rows per layer [A, 2, T, 2F], left pads [A] int32)."""
+    cfg = model.cfg
+    t = cfg.cls_token_num
+    a = cond.shape[0]
+    m2 = None
+    pads = torch.zeros(a, dtype=torch.int32, device=cond.device)
+    if cfg.model_type == "t2i":
+        cond = cond.to(compute_dtype)
+        m = emb_masks.bool()
+        m2 = torch.cat([m, m])
+        pads = (t - m.sum(dim=1)).to(torch.int32)
+    stage = gpt.init_cache(cfg, 2 * a, find_multiple(t, 8), compute_dtype,
+                           cond.device)
+    logits = gpt.prefill(model, build_cfg_batch(model, cond, True), stage,
+                         compute_dtype, prefix_mask=m2)
+    rows = [torch.stack([ckv[:a, :t], ckv[a:, :t]], dim=1)
+            for ckv in stage.kv]
+    return logits, rows, pads
 
 
 def make_admit_batch(model: gpt.Transformer,
                      compute_dtype: torch.dtype = torch.bfloat16):
-    """The t2i admission prefill (JAX `make_admit_batch`): admit(captions
-    [A, T, caption_dim], emb_masks [A, T] bool, sp_rows SlotSampling of [A]
-    tensors, generator, filters_off) runs the A pairs' caption prefills in
-    ONE forward ([2A, T]: cond rows first, the null caption's second),
-    mixes each pair's logits with its own cfg scale and samples its first
-    token. A is whatever the caller gives (the engine: at most min(P, 8)
-    pairs a call). Returns `Admitted`."""
-    cfg = model.cfg
-    t = cfg.cls_token_num
+    """The admission prefill (JAX `make_admit_batch`): admit(cond, emb_masks
+    [A, T] bool or None, sp_rows SlotSampling of [A] tensors, generator,
+    filters_off) runs `prefill_pairs` on A pairs (the t2i engine: captions;
+    the speculative engine: labels too), mixes each pair's logits with its
+    own cfg scale and samples its first token. A is whatever the caller
+    gives (the engines: at most min(P, 8) pairs a call). Returns
+    `Admitted`."""
 
     @torch.no_grad()
-    def admit(captions: torch.Tensor, emb_masks: torch.Tensor,
+    def admit(cond: torch.Tensor, emb_masks: Optional[torch.Tensor],
               sp_rows: SlotSampling, generator: torch.Generator,
               filters_off: bool = False) -> Admitted:
-        a = captions.shape[0]
-        cond = build_cfg_batch(model, captions.to(compute_dtype), True)
-        m = emb_masks.bool()
-        stage = gpt.init_cache(cfg, 2 * a, find_multiple(t, 8),
-                               compute_dtype, captions.device)
-        logits = gpt.prefill(model, cond, stage, compute_dtype,
-                             prefix_mask=torch.cat([m, m]))
+        logits, rows, pads = prefill_pairs(model, cond, emb_masks,
+                                           compute_dtype)
         mixed = sampling.cfg_mix(logits, sp_rows.cfg_scale)
         firsts = sampling.sample_per_slot(mixed, sp_rows.temperature,
                                           sp_rows.top_k, sp_rows.top_p,
                                           generator, filters_off)
-        rows = [torch.stack([ckv[:a, :t], ckv[a:, :t]], dim=1)
-                for ckv in stage.kv]
-        return Admitted(firsts, rows, (t - m.sum(dim=1)).to(torch.int32))
+        return Admitted(firsts, rows, pads)
 
     return admit
 
@@ -283,14 +302,14 @@ def make_admit_batch(model: gpt.Transformer,
 @torch.no_grad()
 def scatter_pairs(state: EngineState, cfg: GPTConfig, slots: torch.Tensor,
                   adm: Admitted, sp_rows: SlotSampling) -> None:
-    """Install admitted t2i pairs in their slots, in place (JAX
+    """Install admitted pairs in their slots, in place (JAX
     `scatter_pair_local` for a group of pairs): slots [A] int64, the
     pairs' cache rows go to rows (slot, P + slot). A bf16/f32 cache takes
     rows [0, T); an int8 cache takes rows [0, base), base = 32 * (T // 32),
     quantised by `quantize_rows` (as `generate`'s `quantize_cache`), and
     rows [base, T) go exact into the tail. Each slot then stands at pos T
-    with its first token written, n_generated 1, its left pad and its
-    sampling parameters; its penalty counts hold the first token."""
+    with its first token written, n_generated 1, its left pad (t2i) and
+    its sampling parameters; its penalty counts hold the first token."""
     p = state.pos.shape[0]
     t = cfg.cls_token_num
     f = cfg.kv_heads * cfg.head_dim
@@ -320,7 +339,8 @@ def scatter_pairs(state: EngineState, cfg: GPTConfig, slots: torch.Tensor,
                       dtype=torch.long, device=firsts.device)
     row[:, 0] = firsts
     state.tokens_out[slots] = row
-    state.prefix_pad[slots] = adm.pads
+    if state.prefix_pad is not None:
+        state.prefix_pad[slots] = adm.pads
     for a, v in zip(state.sp_slots, sp_rows):
         a[slots] = v.to(a.dtype)
     counts = state.output_counts
@@ -344,52 +364,29 @@ class Request:
     finished_at: Optional[float] = None
 
 
-class ServeEngine:
-    """Host-side request loop over the chunked step: `submit` + `run_until_
-    idle` for online serving, `generate` for an offline batch. The model's
-    device is the engine's device."""
+class EngineBase:
+    """The request surface both engines share (`ServeEngine`, and
+    `serve/spec_engine.py::SpecEngine`): `submit`, `submit_caption`,
+    `generate`, `generate_t2i`, `run_until_idle` and the latency gauges of
+    `stats()`, and the grouped admission of captions or labels. A subclass
+    sets the attributes of `_init_requests` (and `_abatch`, `admissions`
+    where it admits through `_admit_grouped`) and gives `_checked` (the
+    sampling parameters it accepts) and `_cycle` (one admission, chunk and
+    harvest)."""
 
-    def __init__(self, model: gpt.Transformer, *, num_pairs: int = 16,
-                 max_new_tokens: int = 576,
-                 sampling_params: Optional[SamplingParams] = None,
-                 chunk: int = 64, seed: int = 0,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 cache_dtype: Optional[torch.dtype] = None,
-                 track_penalties: bool = False):
-        cfg = model.cfg
+    def _init_requests(self, cfg: GPTConfig, device: torch.device,
+                       num_pairs: int, max_new_tokens: int,
+                       sp: Optional[SamplingParams]) -> None:
         if not 0 < max_new_tokens <= cfg.block_size:
             raise ValueError(f"max_new_tokens {max_new_tokens} outside "
                              f"(0, block_size {cfg.block_size}]")
         self.cfg = cfg
-        self.device = model.freqs_cis.device
+        self.device = device
         self.num_pairs = num_pairs
         self.max_new_tokens = max_new_tokens
-        self.sp = sampling_params or SamplingParams()
-        self.chunk = chunk
-        self.step_fn = make_engine_step(model, max_new_tokens, chunk,
-                                        compute_dtype)
-        self.state = init_engine_state(
-            cfg, num_pairs, max_new_tokens,
-            torch.Generator(device=self.device).manual_seed(seed),
-            self.device, cache_dtype=cache_dtype or compute_dtype,
-            compute_dtype=compute_dtype,
-            track_counts=self.sp.uses_penalties or track_penalties,
-            sp=self.sp)
-        self.cache_rows = self.state.cache.kv[0].shape[1]
-        self.slot_request: List[Optional[Request]] = [None] * num_pairs
-        # host mirror of each slot's progress (it advances deterministically)
-        # sizes the chunks, checks the cache bounds and gates the filters
-        # without reading the device
-        self._slot_remaining = np.zeros((num_pairs,), np.int64)
-        self._slot_pos = np.zeros((num_pairs,), np.int64)
-        self._slot_filters_off = np.ones((num_pairs,), bool)
-        self.steps_run = 0  # decode steps since construction (host count)
-        self.admissions = 0  # t2i admission prefills (host count)
+        self.sp = sp or SamplingParams()
         self.t2i = cfg.model_type == "t2i"
-        if self.t2i:
-            # batched admission: one prefill for up to _abatch pending pairs
-            self._abatch = min(num_pairs, 8)
-            self._admit_fn = make_admit_batch(model, compute_dtype)
+        self.slot_request: List[Optional[Request]] = [None] * num_pairs
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._next_id = 0
         self.reset_stats()
@@ -397,8 +394,7 @@ class ServeEngine:
     def submit(self, label: int,
                sp: Optional[SamplingParams] = None) -> Request:
         """A c2i request; `sp` overrides the engine's sampling parameters
-        for this request only. Per-request penalties need the engine built
-        with track_penalties=True (the counts buffer)."""
+        for this request only."""
         if self.t2i:
             raise ValueError("a t2i engine takes captions: submit_caption")
         return self._enqueue(Request(label=int(label),
@@ -425,16 +421,177 @@ class ServeEngine:
                                      emb_mask=emb_mask))
 
     def _checked(self, sp: Optional[SamplingParams]) -> SamplingParams:
-        sp = sp or self.sp
-        if sp.uses_penalties and self.state.output_counts is None:
-            raise ValueError("per-request penalties need ServeEngine("
-                             "track_penalties=True)")
-        return sp
+        raise NotImplementedError
+
+    def _cycle(self) -> None:
+        raise NotImplementedError
 
     def _enqueue(self, req: Request) -> Request:
         self._next_id += 1
         self.pending.put(req)
         return req
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """One host-to-device copy that does not synchronise (pinned,
+        asynchronous)."""
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def _admit_grouped(self, taken: List[Tuple[int, "Request"]],
+                       install: Callable[..., None]) -> None:
+        """Admission of (slot, request) pairs, a group of at most
+        `_abatch` pairs at a time: a group's slots, labels, sampling
+        parameters and (t2i) masks go to the device in one asynchronous
+        copy, its captions in a second; then install(slots, cond, masks,
+        sp_rows, filters_off) runs the subclass's prefill and slot scatter.
+        cond: labels [G] (c2i) or captions [G, T, caption_dim] (t2i);
+        masks: [G, T] bool, None for c2i."""
+        n = 2 + len(SlotSampling._fields)  # slot, label, the parameters
+        for start in range(0, len(taken), self._abatch):
+            grp = taken[start:start + self._abatch]
+            packed = torch.stack([torch.cat([
+                torch.tensor([i, req.label] + req.sp.row()),
+                req.emb_mask.float() if self.t2i else torch.zeros(0)])
+                for i, req in grp])
+            dev = self._to_device(packed)
+            if self.t2i:
+                cond = self._to_device(torch.stack([req.caption
+                                                    for _, req in grp]))
+                masks = dev[:, n:] > 0
+            else:
+                cond, masks = dev[:, 1].long(), None
+            install(dev[:, 0].long(), cond, masks,
+                    SlotSampling(*dev[:, 2:n].t()),
+                    all(req.sp.filters_off for _, req in grp))
+            self.admissions += 1
+
+    def _finish(self, i: int, tokens: np.ndarray) -> None:
+        """Slot i's request is done: its result, latency and TTFT samples
+        (`first_token_at` set by the subclass); the slot is free."""
+        req = self.slot_request[i]
+        req.result = tokens.copy()
+        req.finished_at = time.time()
+        self._latencies.append(req.finished_at - req.submitted_at)
+        self._ttfts.append(req.first_token_at - req.submitted_at)
+        self._completed += 1
+        self.slot_request[i] = None
+
+    def run_until_idle(self) -> None:
+        """Process everything in the queue to completion."""
+        while (not self.pending.empty()
+               or any(r is not None for r in self.slot_request)):
+            self._cycle()
+
+    def generate(self, labels) -> np.ndarray:
+        """Offline batch: labels [N] -> token grids [N, max_new_tokens], in
+        submission order."""
+        reqs = [self.submit(l) for l in labels]
+        self.run_until_idle()
+        return np.stack([r.result for r in reqs])
+
+    def generate_t2i(self, captions, emb_masks) -> np.ndarray:
+        """Offline t2i batch: captions [N, T, caption_dim] + emb_masks
+        [N, T] -> token grids [N, max_new_tokens], in submission order."""
+        reqs = [self.submit_caption(c, m) for c, m in zip(captions,
+                                                           emb_masks)]
+        self.run_until_idle()
+        return np.stack([r.result for r in reqs])
+
+    def reset_stats(self) -> None:
+        """Zero the stats() gauges (latency and TTFT samples, completions,
+        the throughput clock), e.g. after a warm-up."""
+        self._latencies: List[float] = []
+        self._ttfts: List[float] = []
+        self._completed = 0
+        self._started = time.time()
+
+    def _gauges(self, running: int, **extra) -> Dict[str, Any]:
+        """The JAX engine's gauges: running / waiting counts, slot
+        occupancy, completions, throughput, then `extra`, then e2e latency,
+        TTFT and TPOT (time per output token after the first)."""
+        lat = np.asarray(self._latencies) if self._latencies else None
+        ttft = np.asarray(self._ttfts) if self._ttfts else None
+        elapsed = max(time.time() - self._started, 1e-9)
+        tpot = None
+        if lat is not None and ttft is not None and len(lat) == len(ttft) \
+                and self.max_new_tokens > 1:
+            tpot = (lat - ttft) / (self.max_new_tokens - 1)
+
+        def pct(x, q):
+            return float(np.percentile(x, q)) if x is not None else None
+
+        def mean(x):
+            return float(x.mean()) if x is not None else None
+
+        return {
+            "running": running,
+            "waiting": self.pending.qsize(),
+            "slots": self.num_pairs,
+            "slot_occupancy": running / self.num_pairs,
+            "completed": self._completed,
+            "throughput_img_per_s": self._completed / elapsed,
+            **extra,
+            "e2e_latency_mean_s": mean(lat),
+            "e2e_latency_p50_s": pct(lat, 50),
+            "e2e_latency_p95_s": pct(lat, 95),
+            "e2e_latency_p99_s": pct(lat, 99),
+            "ttft_mean_s": mean(ttft),
+            "ttft_p50_s": pct(ttft, 50),
+            "ttft_p95_s": pct(ttft, 95),
+            "tpot_mean_s": mean(tpot),
+            "tpot_p50_s": pct(tpot, 50),
+            "tpot_p95_s": pct(tpot, 95),
+        }
+
+
+class ServeEngine(EngineBase):
+    """Host-side request loop over the chunked step: `submit` + `run_until_
+    idle` for online serving, `generate` for an offline batch. The model's
+    device is the engine's device."""
+
+    def __init__(self, model: gpt.Transformer, *, num_pairs: int = 16,
+                 max_new_tokens: int = 576,
+                 sampling_params: Optional[SamplingParams] = None,
+                 chunk: int = 64, seed: int = 0,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 cache_dtype: Optional[torch.dtype] = None,
+                 track_penalties: bool = False):
+        self._init_requests(model.cfg, model.freqs_cis.device, num_pairs,
+                            max_new_tokens, sampling_params)
+        cfg = self.cfg
+        self.chunk = chunk
+        self.step_fn = make_engine_step(model, max_new_tokens, chunk,
+                                        compute_dtype)
+        self.state = init_engine_state(
+            cfg, num_pairs, max_new_tokens,
+            torch.Generator(device=self.device).manual_seed(seed),
+            self.device, cache_dtype=cache_dtype or compute_dtype,
+            compute_dtype=compute_dtype,
+            track_counts=self.sp.uses_penalties or track_penalties,
+            sp=self.sp)
+        self.cache_rows = self.state.cache.kv[0].shape[1]
+        # host mirror of each slot's progress (it advances deterministically)
+        # sizes the chunks, checks the cache bounds and gates the filters
+        # without reading the device
+        self._slot_remaining = np.zeros((num_pairs,), np.int64)
+        self._slot_pos = np.zeros((num_pairs,), np.int64)
+        self._slot_filters_off = np.ones((num_pairs,), bool)
+        self.steps_run = 0  # decode steps since construction (host count)
+        self.admissions = 0  # t2i admission prefills (host count)
+        if self.t2i:
+            # batched admission: one prefill for up to _abatch pending pairs
+            self._abatch = min(num_pairs, 8)
+            self._admit_fn = make_admit_batch(model, compute_dtype)
+
+    def _checked(self, sp: Optional[SamplingParams]) -> SamplingParams:
+        """Per-request penalties need the engine built with
+        track_penalties=True (the counts buffer)."""
+        sp = sp or self.sp
+        if sp.uses_penalties and self.state.output_counts is None:
+            raise ValueError("per-request penalties need ServeEngine("
+                             "track_penalties=True)")
+        return sp
 
     def _admission(self, admitted: Dict[int, Request]):
         """(mask, labels, SlotSampling) on the device from one host copy
@@ -446,34 +603,15 @@ class ServeEngine:
         dev = self._to_device(torch.from_numpy(packed))
         return dev[0] > 0, dev[1].long(), SlotSampling(*dev[2:])
 
-    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
-        """One host-to-device copy that does not synchronise (pinned,
-        asynchronous)."""
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
-
     def _admit_captions(self, taken: List[Tuple[int, Request]]) -> None:
         """t2i admission of (slot, request) pairs: one `make_admit_batch`
-        prefill per group of at most _abatch pairs, then `scatter_pairs`.
-        The captions, masks, slots and sampling parameters of a group go to
-        the device in two asynchronous copies."""
-        k = 1 + len(SlotSampling._fields)  # slot, then the parameters
-        for start in range(0, len(taken), self._abatch):
-            grp = taken[start:start + self._abatch]
-            packed = torch.stack([torch.cat([
-                torch.tensor([i] + req.sp.row()), req.emb_mask.float()])
-                for i, req in grp])
-            dev = self._to_device(packed)
-            caps = self._to_device(torch.stack([req.caption
-                                                for _, req in grp]))
-            sp_rows = SlotSampling(*dev[:, 1:k].t())
-            adm = self._admit_fn(caps, dev[:, k:] > 0, sp_rows,
-                                 self.state.generator,
-                                 all(req.sp.filters_off for _, req in grp))
-            scatter_pairs(self.state, self.cfg, dev[:, 0].long(), adm,
-                          sp_rows)
-            self.admissions += 1
+        prefill per group of at most _abatch pairs, then `scatter_pairs`."""
+        def install(slots, caps, masks, sp_rows, filters_off):
+            adm = self._admit_fn(caps, masks, sp_rows, self.state.generator,
+                                 filters_off)
+            scatter_pairs(self.state, self.cfg, slots, adm, sp_rows)
+
+        self._admit_grouped(taken, install)
 
     def _admit_and_step(self) -> None:
         admitted: Dict[int, Request] = {}
@@ -519,87 +657,23 @@ class ServeEngine:
         if not done:
             return
         tokens = self.state.tokens_out.cpu().numpy()  # one read a harvest
+        now = time.time()
         for i in done:
             req = self.slot_request[i]
-            req.result = tokens[i].copy()
-            req.finished_at = time.time()
-            self._latencies.append(req.finished_at - req.submitted_at)
             # the only wall-clock observations are the admission and this
             # read: the first token (step 1 of the admission chunk for c2i,
             # the admission prefill for t2i) is interpolated at the
             # measured per-step rate
-            per_step = (req.finished_at - req.admitted_at) \
+            per_step = (now - req.admitted_at) \
                 / max(self.max_new_tokens - self.t2i, 1)
             req.first_token_at = req.admitted_at + per_step
-            self._ttfts.append(req.first_token_at - req.submitted_at)
-            self._completed += 1
-            self.slot_request[i] = None
+            self._finish(i, tokens[i])
 
-    def run_until_idle(self) -> None:
-        """Process everything in the queue to completion."""
-        while (not self.pending.empty()
-               or any(r is not None for r in self.slot_request)):
-            self._admit_and_step()
-            self._harvest()
-
-    def generate(self, labels) -> np.ndarray:
-        """Offline batch: labels [N] -> token grids [N, max_new_tokens], in
-        submission order."""
-        reqs = [self.submit(l) for l in labels]
-        self.run_until_idle()
-        return np.stack([r.result for r in reqs])
-
-    def generate_t2i(self, captions, emb_masks) -> np.ndarray:
-        """Offline t2i batch: captions [N, T, caption_dim] + emb_masks
-        [N, T] -> token grids [N, max_new_tokens], in submission order."""
-        reqs = [self.submit_caption(c, m) for c, m in zip(captions,
-                                                           emb_masks)]
-        self.run_until_idle()
-        return np.stack([r.result for r in reqs])
-
-    def reset_stats(self) -> None:
-        """Zero the stats() gauges (latency and TTFT samples, completions,
-        the throughput clock), e.g. after a warm-up."""
-        self._latencies: List[float] = []
-        self._ttfts: List[float] = []
-        self._completed = 0
-        self._started = time.time()
+    def _cycle(self) -> None:
+        self._admit_and_step()
+        self._harvest()
 
     def stats(self) -> Dict[str, Any]:
-        """The JAX engine's gauges: running / waiting counts, slot
-        occupancy, completions, throughput, e2e latency, TTFT and TPOT
-        (time per output token after the first). Read from the host
-        mirror: no device read."""
-        active = self._slot_remaining > 0
-        lat = np.asarray(self._latencies) if self._latencies else None
-        ttft = np.asarray(self._ttfts) if self._ttfts else None
-        elapsed = max(time.time() - self._started, 1e-9)
-        tpot = None
-        if lat is not None and ttft is not None and len(lat) == len(ttft) \
-                and self.max_new_tokens > 1:
-            tpot = (lat - ttft) / (self.max_new_tokens - 1)
-
-        def pct(x, q):
-            return float(np.percentile(x, q)) if x is not None else None
-
-        def mean(x):
-            return float(x.mean()) if x is not None else None
-
-        return {
-            "running": int(active.sum()),
-            "waiting": self.pending.qsize(),
-            "slots": self.num_pairs,
-            "slot_occupancy": float(active.mean()),
-            "completed": self._completed,
-            "throughput_img_per_s": self._completed / elapsed,
-            "e2e_latency_mean_s": mean(lat),
-            "e2e_latency_p50_s": pct(lat, 50),
-            "e2e_latency_p95_s": pct(lat, 95),
-            "e2e_latency_p99_s": pct(lat, 99),
-            "ttft_mean_s": mean(ttft),
-            "ttft_p50_s": pct(ttft, 50),
-            "ttft_p95_s": pct(ttft, 95),
-            "tpot_mean_s": mean(tpot),
-            "tpot_p50_s": pct(tpot, 50),
-            "tpot_p95_s": pct(tpot, 95),
-        }
+        """The gauges (`EngineBase._gauges`), read from the host mirror: no
+        device read."""
+        return self._gauges(int((self._slot_remaining > 0).sum()))

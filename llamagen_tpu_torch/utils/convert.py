@@ -20,7 +20,7 @@ JAX package's `text/t5.py` runs) into the port's `text/t5.py::T5Encoder`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -55,16 +55,44 @@ def _t(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32))
 
 
+def _same(x) -> torch.Tensor:
+    """An array as a tensor of its own dtype (int8 levels stay int8)."""
+    return torch.from_numpy(np.array(x))
+
+
+def _quantized(sd: StateDict, name: str, p: Mapping[str, Any], key: str,
+               i: Optional[int] = None) -> bool:
+    """A quantised JAX entry `key` (W8A16 `{key}_q` [K, N] int8 +
+    `{key}_scale` [N]; W4 `{key}_w4b` + `{key}_w4s` in the kernel layout;
+    per layer when `i` is given) -> `{name}.weight_q` / `weight_scale` /
+    `weight_w4b` / `weight_w4s`, which hold the same layouts. False when
+    `key` is not quantised."""
+    for jax_keys, attrs in ((("_q", "_scale"), ("q", "scale")),
+                            (("_w4b", "_w4s"), ("w4b", "w4s"))):
+        if key + jax_keys[0] not in p:
+            continue
+        for sfx, attr in zip(jax_keys, attrs):
+            v = np.asarray(p[key + sfx])
+            sd[f"{name}.weight_{attr}"] = _same(v if i is None else v[i])
+        return True
+    return False
+
+
 def gpt_state_dict_from_jax(params: Mapping[str, Any],
                             cfg: GPTConfig) -> StateDict:
     """JAX `models.gpt` params (numpy) -> port `Transformer` state dict
     (c2i: the class table; t2i: the caption MLP and `uncond_embedding`,
-    JAX `utils/convert.py:195-203` inverted)."""
+    JAX `utils/convert.py:195-203` inverted). Quantised layer matmuls
+    (W8A16 `_q` / `_scale`, W4 `_w4b` / `_w4s`, stacked per layer in JAX)
+    and an int8 head (`output_q` / `output_scale`) carry over as they are:
+    a quantised `Linear` of the port keeps JAX's layouts. Load such a dict
+    after `cli/common.py::shape_quantized_linears`."""
     layers = params["layers"]
     cls = params["cls_embedding"]
     sd = {"tok_embeddings.weight": _t(params["tok_embeddings"]),
-          "norm.weight": _t(params["norm"]),
-          "output.weight": _t(np.asarray(params["output"]).T)}
+          "norm.weight": _t(params["norm"])}
+    if not _quantized(sd, "output", params, "output"):
+        sd["output.weight"] = _t(np.asarray(params["output"]).T)
     if cfg.model_type == "c2i":
         sd["cls_embedding.embedding_table.weight"] = \
             _t(cls["embedding_table"])
@@ -80,7 +108,9 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
         for norm in ("attention_norm", "ffn_norm"):
             sd[f"layers.{i}.{norm}.weight"] = _t(layers[norm][i])
         for key, name in linear.items():
-            sd[f"layers.{i}.{name}.weight"] = _t(np.asarray(layers[key][i]).T)
+            if not _quantized(sd, f"layers.{i}.{name}", layers, key, i):
+                sd[f"layers.{i}.{name}.weight"] = \
+                    _t(np.asarray(layers[key][i]).T)
     return sd
 
 

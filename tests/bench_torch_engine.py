@@ -30,6 +30,21 @@ caption prefill and the scatter into the slots).
    share, kernels launched and device ms by group, grouped as
    `tests/bench_torch_sample.py` groups them.
 
+`--spec`: the speculative engine (`serve/spec_engine.py`) at
+`chip_smoke.py`'s point (the counterpart of `tests/bench_spec_engine.py`):
+GPT-L 384 width cut to `--layers` (12) layers, a W8A16 target (layers and
+int8 head), a W4 g128 copy of it drafting (round-to-nearest levels: GPTQ
+picks other levels in the same layout, so the kernels do the same work)
+with an int8 head, 8 pairs, k 4, bf16 caches, cfg 2.0, sampled:
+1. throughput at capacity over `--reqs` (16) requests (img/s, rounds, ms
+   per round, tokens per round and slot, acceptance), then the plain
+   `ServeEngine` at the same pairs on the same W8A16 target with bf16
+   caches too (so the ratio holds the KV type fixed) and requests;
+2. a profile of 4 rounds at capacity: wall ms per round, host µs per
+   round (the host clock up to the last launch, before the synchronise),
+   device busy ms, the idle share and device ms by group (K2, K3, K5,
+   sampling and acceptance, the rest).
+
 Prints a JSON object as its last line (and writes it to `--out`). Needs a
 CUDA device.
 """
@@ -46,8 +61,135 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from bench_torch_sample import _profile  # noqa: E402
+from bench_torch_sample import _group, _profile  # noqa: E402
 from chip_smoke import t2i_engine_requests  # noqa: E402
+
+SAMPLING_KERNELS = ("sort", "softmax", "distribution", "cumsum", "scan",
+                    "argmax")
+
+
+def _spec_group(name: str) -> str:
+    """`_group`'s kernel groups; the rest split into the sampling and
+    acceptance kernels (by name: sorts, softmaxes, random draws, scans,
+    argmaxes) and everything else."""
+    group = _group(name)
+    if not group.startswith("other"):
+        return group
+    if any(k in name.lower() for k in SAMPLING_KERNELS):
+        return "sampling and acceptance (sort, softmax, draws, scans, argmax)"
+    return "other (elementwise, norms, rope, copies, gathers)"
+
+
+def spec_main(args, dev, smi):
+    """`--spec` (module docstring)."""
+    import copy
+
+    from llamagen_tpu_torch.config import gpt_config, replace
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.ops.w4_matmul import quantize_gpt_params_w4k
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    from llamagen_tpu_torch.serve.spec_engine import SpecEngine
+
+    cfg = replace(gpt_config("GPT-L", block_size=576, cls_token_num=1),
+                  n_layer=args.layers)
+    src = gpt.init_weights(gpt.Transformer(cfg, device=dev,
+                                           dtype=torch.bfloat16), seed=0)
+    with torch.no_grad():  # the reference init zeroes the head
+        src.output.weight.normal_(0.0, 0.02, generator=torch.Generator(
+            device=dev).manual_seed(1))
+    src.eval()
+    draft = quantize_gpt_params_w4k(copy.deepcopy(src), int8_head=True)
+    target = quantize_gpt_params(src, quantize_head=True)
+    sp = SamplingParams(cfg_scale=2.0)
+    labels = [i * 17 % 1000 for i in range(args.reqs)]
+    res = {"card": smi, "model": f"GPT-L 384 width, {args.layers} layers",
+           "kind": "spec", "pairs": args.pairs, "requests": args.reqs,
+           "k": 4, "weights_kv": "W8A16 target + int8 head, W4 g128 draft "
+           "+ int8 head, bf16 caches"}
+
+    def spec_engine(max_new=576):
+        return SpecEngine(target, draft, num_pairs=args.pairs,
+                          max_new_tokens=max_new, k=4, sampling_params=sp,
+                          compute_dtype=torch.bfloat16)
+
+    spec_engine(16).generate(labels[:args.pairs])  # warm-up
+    torch.cuda.synchronize()
+    eng = spec_engine()
+    t0 = time.time()
+    eng.generate(labels)
+    secs = time.time() - t0
+    st = eng.stats()
+    res["spec"] = dict(seconds=secs, img_s=args.reqs / secs,
+                       rounds=eng.rounds, ms_per_round=1e3 * secs / eng.rounds,
+                       tokens_per_round_per_slot=st[
+                           "tokens_per_round_per_slot"],
+                       acceptance_rate=st["acceptance_rate"], stats=st)
+    print(f"spec engine ({res['model']}, {args.pairs} pairs, k 4): "
+          f"{args.reqs} requests in {secs:.2f} s = "
+          f"{res['spec']['img_s']:.3f} img/s, {eng.rounds} rounds, "
+          f"{res['spec']['ms_per_round']:.2f} ms/round, "
+          f"{st['tokens_per_round_per_slot']:.3f} tokens/round/slot, "
+          f"acceptance {st['acceptance_rate']:.3f}")
+
+    def plain_engine(max_new=576):
+        return ServeEngine(target, num_pairs=args.pairs,
+                           max_new_tokens=max_new, sampling_params=sp,
+                           compute_dtype=torch.bfloat16,
+                           cache_dtype=torch.bfloat16)
+
+    plain_engine(16).generate(labels[:args.pairs])  # warm-up
+    torch.cuda.synchronize()
+    base = plain_engine()
+    t0 = time.time()
+    base.generate(labels)
+    bsecs = time.time() - t0
+    res["plain"] = dict(seconds=bsecs, img_s=args.reqs / bsecs,
+                        steps=base.steps_run,
+                        ms_per_step=1e3 * bsecs / base.steps_run)
+    print(f"plain ServeEngine (same target, bf16 KV, {args.pairs} pairs): "
+          f"{args.reqs} requests in {bsecs:.2f} s = "
+          f"{res['plain']['img_s']:.3f} img/s, {base.steps_run} steps, "
+          f"{res['plain']['ms_per_step']:.2f} ms/step")
+
+    # 4 rounds at capacity, every slot busy
+    del eng, base
+    eng = spec_engine()
+    for label in labels[:args.pairs]:
+        eng.submit(label)
+    eng._admit()
+
+    host_s = []
+
+    def rounds():
+        t0 = time.time()
+        eng.step_fn(eng.state, 4, True)
+        host_s.append(time.time() - t0)  # every launch issued, unsynced
+        torch.cuda.synchronize()
+        return 4
+
+    r = _profile(rounds)
+    groups = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        rounds()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = _spec_group(e.name)
+            groups[g] = groups.get(g, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3 / 4
+    r["device_ms_by_group"] = groups
+    r["host_us_per_round"] = 1e6 * host_s[0] / 4
+    res["spec_round"] = r
+    print(f"spec round (x4, {2 * args.pairs} rows, verify "
+          f"{2 * args.pairs * 5} rows): wall {r['wall_ms']:.2f} ms, host "
+          f"launches {r['host_us_per_round']:.0f} us, device "
+          f"busy {r['device_busy_ms']:.3f} ms (idle "
+          f"{100 * r['idle_share']:.1f} %), {r['kernels']:.0f} kernels")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:8.3f} ms  {g}")
+    return res
 
 
 def main(argv=None):
@@ -57,13 +199,15 @@ def main(argv=None):
     p.add_argument("--reqs", type=int, default=None, help="192 (t2i: 24)")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--t2i", action="store_true")
+    p.add_argument("--spec", action="store_true")
+    p.add_argument("--layers", type=int, default=12, help="--spec's depth")
     p.add_argument("--profile-steps", type=int, default=32)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     t2i = args.t2i
     args.model = args.model or ("GPT-XL" if t2i else "GPT-L")
-    args.pairs = args.pairs or (8 if t2i else 64)
-    args.reqs = args.reqs or (24 if t2i else 192)
+    args.pairs = args.pairs or (8 if t2i or args.spec else 64)
+    args.reqs = args.reqs or (24 if t2i else 16 if args.spec else 192)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from llamagen_tpu_torch.config import gpt_config
@@ -77,6 +221,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    if args.spec:
+        return _emit(spec_main(args, dev, smi), args.out)
     # c2i: 384 px; t2i: 256 px after 120 caption tokens
     tokens = 256 if t2i else 576
     start = 120 if t2i else 0  # a slot's position after admission
@@ -191,10 +337,15 @@ def main(argv=None):
     for g, ms in sorted(r["device_ms_by_group"].items(),
                         key=lambda kv: -kv[1]):
         print(f"  {ms:8.3f} ms  {g}")
+    _emit(res, args.out)
+
+
+def _emit(res, out):
+    """The result as the last line of the output (and into `out`)."""
     line = json.dumps(res)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
     print(line)
 
 

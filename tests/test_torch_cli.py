@@ -32,22 +32,23 @@ def test_sample_c2i_writes_png(tmp_path):
 
 
 def test_sample_c2i_refuses_what_is_not_ported(tmp_path):
-    """cfg_interval under speculative decoding (JAX refuses it too), GPTQ
-    and AWQ, and a CUDA device that is not there (no silent CPU
-    fallback)."""
+    """cfg_interval under speculative decoding (JAX refuses it too), and a
+    CUDA device that is not there (no silent CPU fallback), for sampling
+    and for GPTQ and AWQ quantisation (ported since: `test_torch_tools.py`
+    runs them on the CPU)."""
     with pytest.raises(ValueError, match="cfg-interval"):
         sample_c2i.main(["--gpt-model", "GPT-nano", "--draft-gpt-model",
                          "GPT-nano", "--cfg-interval", "5", "--device", "cpu",
                          "--out", str(tmp_path / "x.png")])
-    for extra in (["--method", "gptq"], ["--awq"]):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            tools.main(["quantize-ckpt", "--in", "none.pt", "--out",
-                        "none_q.pt", "--mode", "w4", "--device", "cpu"]
-                       + extra)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             sample_c2i.main(["--gpt-model", "GPT-nano", "--device", "cuda",
                              "--out", str(tmp_path / "x.png")])
+        for extra in (["--method", "gptq"], ["--awq"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tools.main(["quantize-ckpt", "--in", "none.pt", "--out",
+                            "none_q.pt", "--mode", "w4", "--device", "cuda"]
+                           + extra)
 
 
 def _random_ckpt(path):
