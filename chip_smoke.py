@@ -190,11 +190,37 @@ Phases, each of which raises on a failed check (exit code != 0):
 37. Greedy f32 speculative engine == `generate` (and == `ServeEngine`):
    c2i at GPT-L width, 2 layers, per-request cfg 1.5 / 2.0 / 4.0 / 3.0;
    t2i at GPT-XL width, 2 layers, pads 0 / 60 / 100 / 119.
+38. InceptionV3 (`eval/inception.py`, pytorch-fid's keys, random weights
+   loaded from a saved .pth) at full width: pool3 / spatial / logits of 4
+   images of 256 px within 1e-4 of each output's largest |value| of the
+   CPU port (f32, TF32 off); img/s over 256 images at batch 64.
+39. The c2i FID sampler (`cli/sample_c2i_fid.py`) at GPT-L 384 -> 256 px,
+   bf16 weights and cache, 32 labels + CFG 2.0 a block, 64 samples, a
+   random checkpoint: K1 (bf16 entry) exactly 2 * 24 * 575 launches and
+   no other kernel, a [64, 256, 256, 3] uint8 .npy, img/s and ms per
+   step; under `torch.distributed.run --nproc_per_node 1` with 32
+   samples its rows equal the first 32; one block at seed 1 (phase 40's
+   reference batch).
+40. `cli/evaluate.py` (random Inception) on phase 39's batch against the
+   seed-1 block: IS, FID, sFID, precision and recall finite; seconds per
+   part.
+41. The t2i FID sampler (`cli/sample_t2i_fid.py`) at GPT-XL 256 px, a
+   random checkpoint, `--random-t5`, 4 prompts of 2-21 words in one
+   batch, CFG 7.5, top-k 1000: K1 with `prefix_pad` exactly 36 * 255
+   launches and no other kernel, `result.jsonl` and PNGs; `ClipScorer`
+   at ViT-B/32 width (random, a stub tokenizer) on them; `cli/
+   evaluate_t2i.py`'s FID against phase 39's reference batch.
+42. `cli/reconstruction_baseline.py` with the backends sd-vae (f8, ch
+   128), taming (f16, 16384 codes) and cd (base 320, mult 1, 1, 2, 3, 4)
+   on 8 images of 256 px from random checkpoints in their published
+   layouts: PSNR / SSIM and seconds per image; sd-vae's and taming's
+   roundtrips of 1 image within 1e-4 of the CPU port's.
 
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
 versions, K2 at the GPT-XL shapes (B 16 and the admission's 1,920 rows),
-and times them there.
+and times them there; and K1's bf16 entry at the FID samplers' shapes
+(c2i B 64, S 640; t2i B 8, S 384 with pads).
 
 Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
@@ -397,7 +423,10 @@ def check_decode_attention(dev):
         ("bf16", "t2i", 20, 20, "t2i", 64, 8, 1152),
         ("bf16", "t2i", 20, 20, "t2i", 64, 4, 1152),
         ("int8", "t2i", 20, 20, "t2i", 64, 16, 384),
-        ("int8", "t2i", 20, 20, "t2i", 64, 4, 384)]
+        ("int8", "t2i", 20, 20, "t2i", 64, 4, 384),
+        # the FID samplers: c2i B 2 * 32 at S 640, t2i 256 px B 2 * 4
+        ("bf16", "per-row", 16, 16, None, 64, 2 * FID_BATCH, 640),
+        ("bf16", "t2i", 20, 20, "t2i", 64, 2 * len(FID_PROMPTS), 384)]
     for i, (cache, pos, h, h_kv, pad, d, b, s) in enumerate(cases):
         q, kv_new, kv, extra = attention_state(dev, b, h, h_kv, s, cache, i,
                                                d)
@@ -449,6 +478,13 @@ def check_decode_attention(dev):
     timings.update(time_decode_attention(
         dev, shapes=(("int8", 20, 64),), b=2 * T2I_ENGINE_PAIRS, s=384,
         pos=248, pads=T2I_PADS, tag=" t2i"))
+    # the FID samplers (bf16 caches): c2i GPT-L at B 64, S 640, mean
+    # position 288; t2i GPT-XL 256 px at B 8, S 384, mean position 248
+    timings.update(time_decode_attention(
+        dev, shapes=(("bf16", 16, 64),), b=2 * FID_BATCH, tag=" fid"))
+    timings.update(time_decode_attention(
+        dev, shapes=(("bf16", 20, 64),), b=2 * len(FID_PROMPTS), s=384,
+        pos=248, pads=T2I_PADS, tag=" t2i fid"))
     return worst, timings
 
 
@@ -3077,16 +3113,10 @@ TWO_RANK_BOUNDS = {"loss": 1e-4, "grad_norm": 1e-4, "param_lr": 0.1}
 DIST_VQ_ENTROPY = 0.1  # the entropy term's ratio in the VQ-GAN phases
 
 
-def launch_ranks(nproc, worker, args, timeout=900):
-    """`python -m torch.distributed.run --standalone --nproc_per_node nproc
-    chip_smoke.py --rank-worker worker args`: every rank's JSON record
-    (the file rank{r}.json it writes into `args["dir"]`; the ranks share
-    one stdout, where long lines interleave). A launch that fails or
-    outlives `timeout` fails the phase; its whole process group is
-    killed."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
-           "--rank-worker", worker, json.dumps(args)]
+def run_command(cmd, timeout):
+    """(exit code, stdout, stderr) of a subprocess in its own session, run
+    from the repo root; its whole group is killed if it outlives
+    `timeout` (which then fails the phase)."""
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -3097,14 +3127,28 @@ def launch_ranks(nproc, worker, args, timeout=900):
         if proc.poll() is None:
             os.killpg(proc.pid, 9)
             proc.communicate()
+    return proc.returncode, out, err
+
+
+def launch_ranks(nproc, worker, args, timeout=900):
+    """`python -m torch.distributed.run --standalone --nproc_per_node nproc
+    chip_smoke.py --rank-worker worker args`: every rank's JSON record
+    (the file rank{r}.json it writes into `args["dir"]`; the ranks share
+    one stdout, where long lines interleave). A launch that fails or
+    outlives `timeout` fails the phase; its whole process group is
+    killed."""
+    rc, out, err = run_command(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+         "--rank-worker", worker, json.dumps(args)], timeout)
     for line in out.splitlines():  # the ranks' own log lines
         log(f"  [{worker}] {line.strip()}")
     for line in err.splitlines():
         if "resumed" in line or "done at" in line:
             log(f"  [{worker}] {line.strip()}")
-    if proc.returncode != 0:
+    if rc != 0:
         raise RuntimeError(f"{worker} at {nproc} ranks exited "
-                           f"{proc.returncode}:\n{err[-6000:]}")
+                           f"{rc}:\n{err[-6000:]}")
     recs = []
     for r in range(nproc):
         with open(os.path.join(args["dir"], f"rank{r}.json")) as f:
@@ -3474,6 +3518,345 @@ def check_two_ranks(dev, recs, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 38-42: evaluation and the baseline tokenizers
+# ---------------------------------------------------------------------------
+
+FID_BATCH, FID_SAMPLES, FID_CFG = 32, 64, 2.0  # the JAX CLI docstring's cfg
+FID_PROMPTS = ["an owl", "a red double-decker bus in the rain",
+               "two dogs asleep on an old sofa next to a reading lamp, oil "
+               "painting",
+               "a lighthouse on a cliff above a stormy sea at dusk, seen "
+               "from a fishing boat, wide shot, dramatic light"]
+TAMING_NAME = "vqgan_imagenet_f16_16384"
+BASELINE_IMAGES = 8
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by its counter's name."""
+    from llamagen_tpu_torch.ops.attention import decode_attention
+    from llamagen_tpu_torch.ops.chunk_attention import chunk_decode_attention
+    from llamagen_tpu_torch.ops.quant_matmul import int8_matmul
+    from llamagen_tpu_torch.ops.w4_matmul import w4_matmul
+    fns = (decode_attention, int8_matmul, w4_matmul, chunk_decode_attention,
+           *k4_kernels())
+    return {f.__name__: f for f in fns}
+
+
+def zero_counters():
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_counters():
+    return {name: f.launches for name, f in kernel_wrappers().items()}
+
+
+def check_only_k1(label, counts, want):
+    """K1 exactly `want` launches, every other kernel none."""
+    others = {k: v for k, v in counts.items() if k != "decode_attention"}
+    log(f"{label}: launches {counts}")
+    if counts["decode_attention"] != want or any(others.values()):
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"decode_attention {want} and no other kernel")
+
+
+def run_inception(dev):
+    """Phase 38: InceptionV3 (pytorch-fid keys, random weights, loaded from
+    a saved .pth) at full width: pool3 / spatial / logits of 4 images of
+    256 px within 1e-4 of each output's largest |value| of the CPU port
+    (f32, TF32 off); then img/s over 256 images at batch 64."""
+    from llamagen_tpu_torch.eval import inception
+    cpu = inception.FeatureExtractor(None, batch_size=4, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pt_inception.pth")
+        torch.save({k: v for k, v in cpu.model.state_dict().items()
+                    if "num_batches_tracked" not in k}, path)
+        card = inception.FeatureExtractor(path, batch_size=64, device=dev)
+    rng = np.random.RandomState(38)
+    imgs = rng.randint(0, 256, (4, 256, 256, 3), np.uint8)
+    for name, a, b in zip(("pool3", "spatial", "logits"),
+                          card.features(imgs), cpu.features(imgs)):
+        rel = np.abs(a - b).max() / np.abs(b).max()
+        log(f"Inception {name} {a.shape}: card vs CPU {rel:.3g} of the "
+            f"largest |value| (tol 1e-4)")
+        if not (a.shape == b.shape and rel <= 1e-4):
+            raise AssertionError(f"Inception {name} disagrees with the CPU")
+    many = rng.randint(0, 256, (256, 256, 256, 3), np.uint8)
+    card.features(many[:64])  # warm up (cuDNN's algorithms, the allocator)
+    t0 = time.time()
+    feats = card.features(many)
+    secs = time.time() - t0
+    if feats[0].shape != (256, 2048) or not np.isfinite(feats[0]).all():
+        raise AssertionError("Inception pool3 is not finite [256, 2048]")
+    log(f"Inception (f32, TF32 off, batch 64, 256 px -> 299): 256 images "
+        f"in {secs:.3f} s = {256 / secs:.1f} img/s")
+    return 256 / secs
+
+
+def run_fid_sampler(dev, tmp):
+    """Phase 39: `cli/sample_c2i_fid.py` at GPT-L 384 -> 256 px, bf16
+    weights and cache, 32 labels a block, cfg 2.0, 64 samples (2 blocks)
+    from a random checkpoint: K1 exactly 2 * 24 * 575 launches and no
+    other kernel, a [64, 256, 256, 3] uint8 .npy, img/s and ms per step.
+    Then the same CLI under `torch.distributed.run --nproc_per_node 1`
+    with 32 samples: its rows equal the first 32. Then one block at seed
+    1, the reference batch of phase 40."""
+    from llamagen_tpu_torch.cli import sample_c2i_fid as fid_cli
+    ckpt = os.path.join(tmp, "gpt_l_384.pt")
+    torch.save(gpt_model(dev, seed=39).state_dict(), ckpt)
+    args = ["--gpt-model", "GPT-L", "--gpt-ckpt", ckpt, "--image-size",
+            "384", "--image-size-eval", "256", "--cfg-scale", str(FID_CFG),
+            "--per-device-batch-size", str(FID_BATCH), "--device", "cuda"]
+    gen_secs = []
+    generate = fid_cli.generate
+
+    def timed(*a, **kw):  # the sampling loop alone, device synchronised
+        torch.cuda.synchronize()
+        t = time.time()
+        out = generate(*a, **kw)
+        torch.cuda.synchronize()
+        gen_secs.append(time.time() - t)
+        return out
+
+    fid_cli.generate = timed
+    zero_counters()
+    try:
+        res = fid_cli.main(args + ["--num-samples", str(FID_SAMPLES),
+                                   "--sample-dir", os.path.join(tmp, "c2i")])
+    finally:
+        fid_cli.generate = generate
+    blocks = FID_SAMPLES // FID_BATCH
+    check_only_k1("FID sampler", read_counters(), blocks * 24 * (TOKENS - 1))
+    launches = read_counters()["decode_attention"]
+    rows = np.load(res.path)
+    if rows.shape != (FID_SAMPLES, 256, 256, 3) or rows.dtype != np.uint8 \
+            or res.written != FID_SAMPLES or rows.std() == 0:
+        raise AssertionError(f"FID sampler wrote {rows.shape} {rows.dtype}")
+    ms_step = 1e3 * sum(gen_secs) / (len(gen_secs) * TOKENS)
+    log(f"FID sampler CLI (GPT-L 384 -> 256, bf16, {FID_BATCH} labels + "
+        f"CFG {FID_CFG} a block, {blocks} blocks): {res.seconds:.3f} s = "
+        f"{FID_SAMPLES / res.seconds:.3f} img/s; sampling "
+        f"{sum(gen_secs):.3f} s, {ms_step:.3f} ms per step; VQ decode + "
+        f"resize + write {res.seconds - sum(gen_secs):.3f} s")
+
+    t0 = time.time()
+    rc, out, err = run_command(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m",
+         "llamagen_tpu_torch.cli.sample_c2i_fid", *args, "--num-samples",
+         str(FID_BATCH), "--sample-dir", os.path.join(tmp, "torchrun")],
+        timeout=600)
+    if rc != 0:
+        raise RuntimeError(f"the FID sampler under torchrun exited {rc}:\n"
+                           f"{err[-6000:]}")
+    one_rank = np.load(os.path.join(tmp, "torchrun",
+                                    os.path.basename(res.path)))
+    same = np.array_equal(one_rank, rows[:FID_BATCH])
+    log(f"FID sampler under torchrun at one rank ({FID_BATCH} samples, "
+        f"{time.time() - t0:.1f} s with the launch): rows equal the "
+        f"one-process run's first {FID_BATCH}: {same}; "
+        f"{out.strip().splitlines()[-1]}")
+    if not same:
+        raise AssertionError("the one-rank rows differ from one process's")
+
+    ref = fid_cli.main(args + ["--num-samples", str(FID_BATCH), "--seed",
+                               "1", "--sample-dir", os.path.join(tmp, "ref")])
+    return {"launches": launches, "path": res.path, "ref": ref.path,
+            "img_s": FID_SAMPLES / res.seconds, "ms_step": ms_step}
+
+
+def run_evaluate(dev, samples):
+    """Phase 40: `cli/evaluate.py` (random Inception) on phase 39's batch
+    against the seed-1 block: the five metrics finite, seconds per part."""
+    from llamagen_tpu_torch.cli import evaluate
+    t0 = time.time()
+    res = evaluate.main([samples["ref"], samples["path"], "--device",
+                         "cuda"])
+    log(f"evaluate CLI ({FID_BATCH} reference and {FID_SAMPLES} sample "
+        f"images, random Inception): {res.metrics}; seconds "
+        f"{ {k: round(v, 3) for k, v in res.seconds.items()} }, whole CLI "
+        f"{time.time() - t0:.3f}")
+    if len(res.metrics) != 5 or not all(np.isfinite(v)
+                                        for v in res.metrics.values()):
+        raise AssertionError(f"evaluate metrics {res.metrics}")
+    return res
+
+
+class ClipStubTokenizer:
+    """Token ids from each caption's crc32 in CLIP's vocabulary, ending
+    with the end-of-text id 49407 (the highest), then padding: what
+    `ClipScorer` asks of a tokenizer, without tokenizer files."""
+
+    def __call__(self, texts, max_length=77, **kw):
+        import zlib
+        ids = np.full((len(texts), max_length), 49407, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, t in enumerate(texts):
+            n = min(len(t.split()) + 2, max_length)
+            ids[i, 0] = 49406
+            ids[i, 1:n - 1] = np.random.RandomState(
+                zlib.crc32(t.encode())).randint(1, 49406, size=(n - 2,))
+            mask[i, :n] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def run_t2i_fid(dev, tmp, ref_path):
+    """Phase 41: `cli/sample_t2i_fid.py` at GPT-XL 256 px (random
+    checkpoint, --random-t5, 4 prompts of 2 to 21 words in one batch, cfg
+    7.5, top-k 1000): K1 exactly 36 * 255 launches a batch (`prefix_pad`)
+    and no other kernel, `result.jsonl` and the PNGs. Then `ClipScorer` at
+    ViT-B/32 width (random, the stub tokenizer) on those images and
+    `cli/evaluate_t2i.py`'s FID against phase 39's reference batch."""
+    from llamagen_tpu_torch.cli import evaluate_t2i, sample_t2i_fid
+    from llamagen_tpu_torch.eval import clip
+    ckpt = os.path.join(tmp, "gpt_xl_t2i_256.pt")
+    torch.save(t2i_model(dev, 256, seed=41).state_dict(), ckpt)
+    prompts = os.path.join(tmp, "prompts.jsonl")
+    with open(prompts, "w") as f:
+        for p in FID_PROMPTS:
+            f.write(json.dumps({"caption": p}) + "\n")
+    out = os.path.join(tmp, "t2i")
+    zero_counters()
+    res = sample_t2i_fid.main([
+        "--prompt-file", prompts, "--gpt-model", "GPT-XL", "--gpt-ckpt",
+        ckpt, "--image-size", "256", "--random-t5", "--cfg-scale",
+        str(T2I_CFG), "--top-k", str(T2I_TOP_K), "--per-proc-batch-size",
+        str(len(FID_PROMPTS)), "--sample-dir", out, "--device", "cuda"])
+    check_only_k1("t2i FID sampler", read_counters(), 36 * 255)
+    launches = read_counters()["decode_attention"]
+    result = os.path.join(out, "result.jsonl")
+    images, captions = evaluate_t2i.load_result_jsonl(result)
+    if images.shape != (4, 256, 256, 3) or captions != FID_PROMPTS:
+        raise AssertionError(f"t2i FID sampler wrote {images.shape}")
+    log(f"t2i FID sampler CLI (GPT-XL 256, bf16, 4 prompts + CFG {T2I_CFG}, "
+        f"top-k {T2I_TOP_K}): sampling {res.gen_seconds:.3f} s "
+        f"({1e3 * res.gen_seconds / 256:.3f} ms per step), whole loop "
+        f"{res.seconds:.3f} s = {4 / res.seconds:.3f} img/s")
+
+    model = clip.init_weights(clip.CLIPModel())
+    scorer = clip.ClipScorer(model=model, tokenizer=ClipStubTokenizer(),
+                             device=dev)
+    scorer.pair_scores(images, captions)  # warm up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scores = scorer.pair_scores(images, captions)
+    clip_secs = time.time() - t0
+    cos = scorer.cosines(images, captions)
+    log(f"CLIP score (ViT-B/32 width, random, f32): cosines "
+        f"{np.round(cos, 4).tolist()}, pair scores (100 * max(cos, 0)) "
+        f"{np.round(scores, 4).tolist()} in {clip_secs:.4f} s "
+        f"({4 / clip_secs:.1f} pairs/s)")
+    if scores.shape != (4,) or not (np.abs(cos) <= 1 + 1e-5).all() \
+            or not np.array_equal(scores, 100.0 * np.maximum(cos, 0.0)):
+        raise AssertionError(f"CLIP cosines {cos}, pair scores {scores}")
+    t0 = time.time()
+    ev = evaluate_t2i.main(["--result", result, "--ref-batch", ref_path,
+                            "--device", "cuda"])
+    log(f"evaluate_t2i (FID against {FID_BATCH} reference images, random "
+        f"Inception): {ev} in {time.time() - t0:.3f} s")
+    if not np.isfinite(ev["FID"]):
+        raise AssertionError(f"evaluate_t2i {ev}")
+    return {"launches": launches, "clip_s": clip_secs}
+
+
+def taming_layout(sd, n):
+    """The port's VQ keys -> taming's: `conv_blocks.{i}` -> encoder
+    `down.{i}` / decoder `up.{n - 1 - i}`, `res` -> `block`, `mid.0/1/2`
+    -> `mid.block_1/attn_1/block_2`."""
+    import re
+    out = {}
+    for k, v in sd.items():
+        for part in ("encoder", "decoder"):
+            for src, dst in (("0", "block_1"), ("1", "attn_1"),
+                             ("2", "block_2")):
+                k = k.replace(f"{part}.mid.{src}.", f"{part}.mid.{dst}.")
+        k = re.sub(r"encoder\.conv_blocks\.(\d+)\.res\.",
+                   r"encoder.down.\1.block.", k)
+        k = re.sub(r"encoder\.conv_blocks\.(\d+)\.", r"encoder.down.\1.", k)
+        m = re.match(r"decoder\.conv_blocks\.(\d+)\.(res|attn|upsample)\.(.*)",
+                     k)
+        if m:
+            kind = "block" if m.group(2) == "res" else m.group(2)
+            k = f"decoder.up.{n - 1 - int(m.group(1))}.{kind}.{m.group(3)}"
+        out[k] = v
+    return out
+
+
+def run_baselines(dev, tmp):
+    """Phase 42: `cli/reconstruction_baseline.py` with the backends sd-vae
+    (f8, ch 128), taming (f16, 16384 codes of 256) and cd (base 320, mult
+    1, 1, 2, 3, 4, the sd-vae encoder) on 8 images of 256 px, from random
+    checkpoints in their published layouts (LDM, taming, ConvUNetVAE):
+    PSNR / SSIM and seconds per image each; sd-vae's and taming's
+    roundtrips of 1 image within 1e-4 of the largest |value| of the CPU
+    port's (f32, TF32 off)."""
+    from PIL import Image
+
+    from llamagen_tpu_torch.cli import reconstruction_baseline as rb
+    from llamagen_tpu_torch.models import consistency_decoder as cdm
+    from llamagen_tpu_torch.models import klvae, vq
+    from llamagen_tpu_torch.utils import convert
+    data = os.path.join(tmp, "val", "cls")
+    os.makedirs(data)
+    rng = np.random.RandomState(42)
+    for i in range(BASELINE_IMAGES):  # smooth random images
+        low = rng.randint(0, 256, (16, 16, 3), np.uint8)
+        Image.fromarray(low).resize((256, 256), Image.BICUBIC).save(
+            os.path.join(data, f"{i}.png"))
+    vae_ckpt = os.path.join(tmp, "sd_vae.ckpt")
+    torch.save({"state_dict": klvae.init_weights(
+        klvae.AutoencoderKL()).state_dict()}, vae_ckpt)
+    tcfg = convert.taming_vq_config(TAMING_NAME)
+    taming = vq.init_weights(vq.VQModel(tcfg, encoder=True))
+    with torch.no_grad():  # codes at the latents' scale (no near ties)
+        taming.quantize.embedding.weight.normal_(
+            0.0, 1.0, generator=torch.Generator().manual_seed(42))
+    taming_ckpt = os.path.join(tmp, "vqgan_imagenet_f16_16384.ckpt")
+    torch.save({"state_dict": taming_layout(taming.state_dict(),
+                                            len(tcfg.decoder_ch_mult))},
+               taming_ckpt)
+    cd_ckpt = os.path.join(tmp, "consistency_decoder.pt")
+    torch.save(cdm.init_weights(cdm.ConvUNetVAE()).state_dict(), cd_ckpt)
+    del taming
+
+    common = ["--data-path", os.path.join(tmp, "val"), "--image-size", "256",
+              "--batch-size", str(BASELINE_IMAGES), "--device", "cuda"]
+    results = {}
+    for backend, extra in (("sd-vae", ["--ckpt", vae_ckpt]),
+                           ("taming", ["--ckpt", taming_ckpt,
+                                       "--taming-config", TAMING_NAME]),
+                           ("cd", ["--ckpt", cd_ckpt, "--vae-ckpt",
+                                   vae_ckpt])):
+        t0 = time.time()
+        res = rb.main(common + ["--backend", backend] + extra)
+        log(f"reconstruction_baseline {backend}: {res['images']} images, "
+            f"PSNR {res['psnr']:.4f}, SSIM {res['ssim']:.5f}, "
+            f"{res['seconds_per_image']:.4f} s per image in the model; "
+            f"whole CLI {time.time() - t0:.3f} s")
+        if res["images"] != BASELINE_IMAGES or not (
+                np.isfinite(res["psnr"]) and np.isfinite(res["ssim"])):
+            raise AssertionError(f"{backend}: {res}")
+        results[backend] = res
+        _free()
+
+    img = np.array(Image.open(os.path.join(data, "0.png")))
+    x = (img.astype(np.float32) / 127.5 - 1.0)[None]
+    for backend, make in (
+            ("sd-vae", lambda d: rb.sd_vae_roundtrip(vae_ckpt, None, d)),
+            ("taming", lambda d: rb.taming_roundtrip(taming_ckpt,
+                                                     TAMING_NAME, None, d))):
+        card, cpu = make(dev)(x), make("cpu")(x)
+        rel = np.abs(card - cpu).max() / np.abs(cpu).max()
+        log(f"{backend} roundtrip of 1 image, card vs CPU: {rel:.3g} of the "
+            f"largest |value| (tol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{backend}: the card's roundtrip differs "
+                                 f"from the CPU's")
+        _free()
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -3554,6 +3937,16 @@ def main():
     del draft
     phase("greedy f32 speculative engine == generate",
           run_spec_engine_greedy_f32)
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("Inception, pytorch-fid layout, full width", run_inception)
+        fid = phase("c2i FID sampler CLI, GPT-L 384",
+                    lambda d: run_fid_sampler(d, tmp))
+        phase("evaluate CLI", lambda d: run_evaluate(d, fid))
+        t2i_fid = phase("t2i FID sampler, CLIP score, evaluate_t2i",
+                        lambda d: run_t2i_fid(d, tmp, fid["ref"]))
+        phase("baseline tokenizers: sd-vae, taming, cd",
+              lambda d: run_baselines(d, tmp))
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):
@@ -3638,6 +4031,16 @@ def main():
               "llamagen_tpu/ops/chunk_attention.py:315",
               spec_engine["chunk_decode_attention"], k5_err,
               k5_t[f"{SPEC_K + 1} spec"]),
+        # the evaluation slice: K1's bf16 entry in the FID samplers
+        entry(f"decode_attention [c2i FID sampler: GPT-L 384, bf16 cache, "
+              f"B {2 * FID_BATCH}]", "decode_attention.cu",
+              "llamagen_tpu/ops/attention.py:569", fid["launches"], k1_err,
+              k1_t[f"bf16 B{2 * FID_BATCH} fid"]),
+        entry(f"decode_attention [t2i FID sampler: GPT-XL 256 px, bf16 "
+              f"cache, B {2 * len(FID_PROMPTS)}, 20 heads, prefix_pad]",
+              "decode_attention.cu", "llamagen_tpu/ops/attention.py:569",
+              t2i_fid["launches"], k1_err,
+              k1_t[f"bf16 B{2 * len(FID_PROMPTS)} t2i fid"]),
     ]}
     print(smi)
     print(json.dumps(record))

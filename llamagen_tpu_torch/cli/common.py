@@ -19,7 +19,8 @@ from llamagen_tpu_torch.models import gpt as gpt_lib
 from llamagen_tpu_torch.models import vq as vq_lib
 from llamagen_tpu_torch.parallel import distributed
 from llamagen_tpu_torch.parallel import mesh as mesh_lib
-from llamagen_tpu_torch.utils.convert import load_torch_state_dict
+from llamagen_tpu_torch.utils.convert import (load_torch_state_dict,
+                                              strip_prefixes)
 
 
 def get_device(name: str) -> torch.device:
@@ -80,13 +81,7 @@ def min_over_ranks(value: int, device: torch.device) -> int:
 
 def _load(path: str, keep_dtypes: bool = False) -> Dict[str, torch.Tensor]:
     """A released `.pt` (trainer wrappers and `module.` prefixes removed)."""
-    out = {}
-    for k, v in load_torch_state_dict(path, keep_dtypes).items():
-        for prefix in ("module.", "_orig_mod."):
-            if k.startswith(prefix):
-                k = k[len(prefix):]
-        out[k] = v
-    return out
+    return strip_prefixes(load_torch_state_dict(path, keep_dtypes))
 
 
 def _load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:

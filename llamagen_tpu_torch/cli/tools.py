@@ -210,8 +210,8 @@ def cmd_validate_release(args) -> None:
        against the port (`_oracle`), SKIP without --reference or when it
        cannot be imported;
     3. sample: an 8-image CFG grid (bf16) on --device, `sample_grid.png`;
-    4. the FID protocol: SKIP, the port's FID sampler and evaluator are
-       not ported yet (ROADMAP.md, Queue 1 item 11)."""
+    4. the FID protocol: the `cli/sample_c2i_fid.py` and `cli/evaluate.py`
+       commands for the converted weights, printed to run."""
     from llamagen_tpu_torch.ops.generate import generate
 
     os.makedirs(args.out, exist_ok=True)
@@ -256,8 +256,19 @@ def cmd_validate_release(args) -> None:
     png = os.path.join(args.out, "sample_grid.png")
     save_image_grid(imgs.float().cpu().numpy(), png, nrow=4)
     print(f"[3/4 sample ] PASS  {png}")
-    print("[4/4 FID protocol] SKIP  (the port's FID sampler and evaluator "
-          "are not ported yet: ROADMAP.md, Queue 1 item 11)")
+    # {sample_dir}/{model}-{size}-size-{eval}-cfg-{cfg}-seed-{seed}.npz
+    sample_name = (f"{args.gpt_model}-{args.image_size}-size-256"
+                   f"-cfg-{args.cfg_scale}-seed-0")
+    print("[4/4 FID protocol] run:")
+    print(f"  python -m llamagen_tpu_torch.cli.sample_c2i_fid \\\n"
+          f"      --vq-ckpt {vq_path} --gpt-ckpt {gpt_path} "
+          f"--gpt-model {args.gpt_model} \\\n"
+          f"      --image-size {args.image_size} --image-size-eval 256 "
+          f"--cfg-scale {args.cfg_scale} \\\n"
+          f"      --num-samples 50000 --sample-dir {args.out} --npz")
+    print(f"  python -m llamagen_tpu_torch.cli.evaluate "
+          f"VIRTUAL_imagenet256_labeled.npz \\\n"
+          f"      {args.out}/{sample_name}.npz")
 
 
 def cmd_check_codes(args) -> None:

@@ -271,3 +271,223 @@ def lpips_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
         sd[f"lin{k}.model.1.weight"] = \
             _t(np.asarray(lin["kernel"]).T[:, :, None, None])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Evaluation networks (weights-gated; tests carry random JAX / Flax ones)
+# ---------------------------------------------------------------------------
+
+
+def inception_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """JAX `eval/inception.py` params (`init_params` or `convert_inception`
+    output: per conv an HWIO kernel and the BatchNorm's scale, bias, mean
+    and variance) -> pytorch-fid's keys (the port's `FIDInceptionV3`)."""
+    sd: StateDict = {}
+
+    def conv_bn(name, p):
+        sd[f"{name}.conv.weight"] = _t(np.transpose(p["kernel"],
+                                                    (3, 2, 0, 1)))
+        for key, attr in (("bn_scale", "weight"), ("bn_bias", "bias"),
+                          ("bn_mean", "running_mean"),
+                          ("bn_var", "running_var")):
+            sd[f"{name}.bn.{attr}"] = _t(p[key])
+
+    for name, p in params.items():
+        if name == "fc":
+            continue
+        if "kernel" in p:
+            conv_bn(name, p)
+        else:
+            for branch, q in p.items():
+                conv_bn(f"{name}.{branch}", q)
+    sd["fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
+    sd["fc.bias"] = _t(params["fc"]["bias"])
+    return sd
+
+
+def clip_state_dict_from_flax(params: Mapping[str, Any]) -> StateDict:
+    """HF `FlaxCLIPModel` params (numpy) -> HF `CLIPModel`'s torch keys
+    (the port's `eval/clip.py::CLIPModel`): Dense kernels `[in, out]`
+    transposed, the patch conv HWIO -> OIHW, LayerNorm `scale` and
+    embedding tables renamed `weight`."""
+    sd: StateDict = {}
+
+    def walk(prefix, node):
+        for key, value in node.items():
+            name = f"{prefix}.{key}" if prefix else str(key)
+            if isinstance(value, Mapping):
+                walk(name, value)
+                continue
+            v = np.asarray(value)
+            if key == "kernel":
+                v = v.T if v.ndim == 2 else np.transpose(v, (3, 2, 0, 1))
+            if key in ("kernel", "scale", "embedding"):
+                name = f"{prefix}.weight"
+            sd[name] = _t(v)
+
+    walk("", params)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Baseline tokenizers: SD-VAE, taming VQGAN, the consistency decoder
+# (numpy-only copies of the JAX package's key handling)
+# ---------------------------------------------------------------------------
+
+_BASELINE_PREFIXES = ("encoder.", "decoder.", "quant_conv.",
+                      "post_quant_conv.", "quantize.embedding.")
+
+
+def strip_prefixes(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The same entries with trainer prefixes (`module.`, `_orig_mod.`)
+    removed from their names."""
+    out = {}
+    for k, v in sd.items():
+        for prefix in ("module.", "_orig_mod."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        out[k] = v
+    return out
+
+
+def _numpy_f32(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Prefixes stripped, values f32 numpy (tensors of any dtype too)."""
+    return {k: v.detach().float().cpu().numpy() if torch.is_tensor(v)
+            else np.asarray(v, np.float32)
+            for k, v in strip_prefixes(sd).items()}
+
+
+def diffusers_vae_to_ldm_keys(sd: Mapping[str, np.ndarray]
+                              ) -> Dict[str, np.ndarray]:
+    """Rename a diffusers AutoencoderKL state dict into the LDM layout
+    (the inverse of diffusers' own `convert_ldm_vae_checkpoint` mapping)
+    so one loader serves both layouts."""
+    import re
+
+    # count decoder up levels to reverse the block index (diffusers
+    # up_blocks[0] is the LOWEST resolution; ldm up.{level} indexes by
+    # level with 0 = highest)
+    ups = {int(m.group(1)) for k in sd
+           if (m := re.match(r"decoder\.up_blocks\.(\d+)\.", k))}
+    nlev = (max(ups) + 1) if ups else 0
+
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("mid_block.resnets.0.", "mid.block_1.")
+        k = k.replace("mid_block.resnets.1.", "mid.block_2.")
+        k = k.replace("mid_block.attentions.0.group_norm.",
+                      "mid.attn_1.norm.")
+        k = k.replace("mid_block.attentions.0.to_q.", "mid.attn_1.q.")
+        k = k.replace("mid_block.attentions.0.to_k.", "mid.attn_1.k.")
+        k = k.replace("mid_block.attentions.0.to_v.", "mid.attn_1.v.")
+        k = k.replace("mid_block.attentions.0.to_out.0.",
+                      "mid.attn_1.proj_out.")
+        k = k.replace("conv_norm_out.", "norm_out.")
+        k = k.replace(".conv_shortcut.", ".nin_shortcut.")
+        m = re.match(r"encoder\.down_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", k)
+        if m:
+            k = f"encoder.down.{m.group(1)}.block.{m.group(2)}.{m.group(3)}"
+        m = re.match(r"encoder\.down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)", k)
+        if m:
+            k = f"encoder.down.{m.group(1)}.downsample.conv.{m.group(2)}"
+        m = re.match(r"decoder\.up_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", k)
+        if m:
+            lev = nlev - 1 - int(m.group(1))
+            k = f"decoder.up.{lev}.block.{m.group(2)}.{m.group(3)}"
+        m = re.match(r"decoder\.up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.*)", k)
+        if m:
+            lev = nlev - 1 - int(m.group(1))
+            k = f"decoder.up.{lev}.upsample.conv.{m.group(2)}"
+        out[k] = np.asarray(v)
+    return out
+
+
+def sd_vae_state_dict(sd: Mapping[str, Any]) -> StateDict:
+    """An SD-VAE (AutoencoderKL) state dict in the LDM or the diffusers
+    layout -> the port's `models/klvae.py::AutoencoderKL` (LDM keys):
+    diffusers' Linear attention projections become 1x1 convolutions; keys
+    outside the autoencoder (an LDM checkpoint's `loss.*`) are left out."""
+    sd = _numpy_f32(sd)
+    if any(k.startswith("encoder.down_blocks.") for k in sd):
+        sd = diffusers_vae_to_ldm_keys(sd)
+    out: StateDict = {}
+    for k, v in sd.items():
+        if not k.startswith(_BASELINE_PREFIXES):
+            continue
+        if ".attn_1." in k and k.endswith(".weight") and v.ndim == 2:
+            v = v[:, :, None, None]
+        out[k] = _t(v)
+    return out
+
+
+def taming_vq_config(name: str) -> VQConfig:
+    """taming config presets (the yaml params of upstream's
+    tokenizer/vqgan/configs/*.yaml); the codebook is not l2-normalised."""
+    presets = {
+        "vqgan_imagenet_f16_1024": dict(
+            codebook_size=1024, codebook_embed_dim=256,
+            encoder_ch_mult=(1, 1, 2, 2, 4), decoder_ch_mult=(1, 1, 2, 2, 4)),
+        "vqgan_imagenet_f16_16384": dict(
+            codebook_size=16384, codebook_embed_dim=256,
+            encoder_ch_mult=(1, 1, 2, 2, 4), decoder_ch_mult=(1, 1, 2, 2, 4)),
+        "vqgan_openimage_f8_256": dict(
+            codebook_size=256, codebook_embed_dim=4,
+            encoder_ch_mult=(1, 2, 2, 4), decoder_ch_mult=(1, 2, 2, 4)),
+        "vqgan_openimage_f8_16384": dict(
+            codebook_size=16384, codebook_embed_dim=4,
+            encoder_ch_mult=(1, 2, 2, 4), decoder_ch_mult=(1, 2, 2, 4)),
+    }
+    return VQConfig(codebook_l2_norm=False, **presets[name])
+
+
+def taming_vq_state_dict(sd: Mapping[str, Any], cfg: VQConfig) -> StateDict:
+    """A CompVis taming VQModel state dict -> the upstream LlamaGen VQModel
+    keys (the port's `VQModel(cfg, encoder=True)`), as the JAX package's
+    `convert_taming_vq` maps it: encoder `down.{i}.block.{j}` / `attn.{j}`
+    / `downsample` -> `conv_blocks.{i}.res.{j}` / `attn.{j}` /
+    `downsample`; `mid.block_1` / `attn_1` / `block_2` -> `mid.0` / `1` /
+    `2`; decoder `up.{level}` (applied from the lowest resolution) ->
+    `conv_blocks.{n - 1 - level}` (application order). Valid for the
+    configs upstream ships, whose attention sits exactly at the lowest
+    level; the loss's keys are left out."""
+    import re
+
+    sd = _numpy_f32(sd)
+    n_dec = len(cfg.decoder_ch_mult)
+    last = len(cfg.encoder_ch_mult) - 1
+    out: StateDict = {}
+    for k, v in sd.items():
+        if not k.startswith(_BASELINE_PREFIXES):
+            continue
+        for part in ("encoder", "decoder"):
+            for src, dst in (("block_1", "0"), ("attn_1", "1"),
+                             ("block_2", "2")):
+                k = k.replace(f"{part}.mid.{src}.", f"{part}.mid.{dst}.")
+        m = re.match(r"encoder\.down\.(\d+)\.(block|attn|downsample)\.(.*)",
+                     k)
+        if m:
+            i, kind, rest = int(m.group(1)), m.group(2), m.group(3)
+            if kind == "attn" and i != last:
+                raise ValueError("taming checkpoint places attention away "
+                                 "from the lowest level: unsupported")
+            kind = {"block": "res"}.get(kind, kind)
+            k = f"encoder.conv_blocks.{i}.{kind}.{rest}"
+        m = re.match(r"decoder\.up\.(\d+)\.(block|attn|upsample)\.(.*)", k)
+        if m:
+            level, kind, rest = int(m.group(1)), m.group(2), m.group(3)
+            if kind == "attn" and level != n_dec - 1:
+                raise ValueError("taming checkpoint places attention away "
+                                 "from the lowest level: unsupported")
+            kind = {"block": "res"}.get(kind, kind)
+            k = f"decoder.conv_blocks.{n_dec - 1 - level}.{kind}.{rest}"
+        out[k] = _t(v)
+    return out
+
+
+def consistency_decoder_state_dict(sd: Mapping[str, Any]) -> StateDict:
+    """An openai ConvUNetVAE state dict -> the port's
+    `models/consistency_decoder.py::ConvUNetVAE` (the same keys, trainer
+    prefixes removed). Load it strictly: a key the port does not hold, or
+    one it misses, fails loudly (the JAX converter's full-coverage
+    assertion)."""
+    return {k: _t(v) for k, v in _numpy_f32(sd).items()}

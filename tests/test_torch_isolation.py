@@ -42,7 +42,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 58  # every module was walked, parallel/'s too
+    assert len(names) >= 68  # every module was walked, parallel/'s too
     assert {"llamagen_tpu_torch.text.t5", "llamagen_tpu_torch.text.cleaning",
             "llamagen_tpu_torch.cli.sample_t2i",
             "llamagen_tpu_torch.cli.extract_t5_features",
@@ -56,7 +56,18 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
             "llamagen_tpu_torch.serve.spec_engine",
             "llamagen_tpu_torch.ops.gptq", "llamagen_tpu_torch.ops.awq",
             "llamagen_tpu_torch.utils.hub",
-            "llamagen_tpu_torch.cli.tools"} <= names
+            "llamagen_tpu_torch.cli.tools",
+            # evaluation and the baseline tokenizers
+            "llamagen_tpu_torch.eval.fid",
+            "llamagen_tpu_torch.eval.inception",
+            "llamagen_tpu_torch.eval.clip",
+            "llamagen_tpu_torch.cli.evaluate",
+            "llamagen_tpu_torch.cli.evaluate_t2i",
+            "llamagen_tpu_torch.cli.sample_c2i_fid",
+            "llamagen_tpu_torch.cli.sample_t2i_fid",
+            "llamagen_tpu_torch.models.klvae",
+            "llamagen_tpu_torch.models.consistency_decoder",
+            "llamagen_tpu_torch.cli.reconstruction_baseline"} <= names
 
 
 def _fields(cfg):

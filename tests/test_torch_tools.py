@@ -175,8 +175,9 @@ def test_export_hub_and_load_pretrained_round_trip(nano_ckpt, tmp_path,
 
 @pytest.mark.parametrize("oracle", ["--skip-oracle", "no-reference"])
 def test_validate_release_skip_oracle(nano_ckpt, tmp_path, capsys, oracle):
-    """Convert, sample and the FID SKIP; the oracle SKIPs on --skip-oracle
-    and without --reference, and then puts nothing on sys.path."""
+    """Convert, sample and the FID protocol's commands; the oracle SKIPs on
+    --skip-oracle and without --reference, and then puts nothing on
+    sys.path."""
     import sys
     from llamagen_tpu_torch.cli.common import load_vq
     vq_pt = str(tmp_path / "vq.pt")
@@ -191,7 +192,10 @@ def test_validate_release_skip_oracle(nano_ckpt, tmp_path, capsys, oracle):
                 "cpu"] + ([oracle] if oracle == "--skip-oracle" else []))
     text = capsys.readouterr().out
     assert "[1/4 convert] PASS" in text and "[3/4 sample ] PASS" in text
-    assert "[4/4 FID protocol] SKIP" in text
+    assert "[4/4 FID protocol] run:" in text
+    assert "python -m llamagen_tpu_torch.cli.sample_c2i_fid" in text
+    assert f"--gpt-ckpt {os.path.join(out, 'gpt.pt')}" in text
+    assert f"{out}/GPT-nano-32-size-256-cfg-2.0-seed-0.npz" in text
     assert ("[2/4 oracle ] SKIP  (--skip-oracle)" if oracle == "--skip-oracle"
             else "[2/4 oracle ] SKIP  (no --reference)") in text
     assert sys.path == path_before

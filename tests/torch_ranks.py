@@ -224,3 +224,11 @@ def cli(module, argv):
     return {"step": state.step, "group_left": dist.is_initialized(),
             "rank": int(os.environ["RANK"])}
 
+
+
+def run_cli(module, argv):
+    """`llamagen_tpu_torch.cli.<module>.main(argv)`'s return value in this
+    rank, under the launcher's environment."""
+    import importlib
+    return importlib.import_module(
+        f"llamagen_tpu_torch.cli.{module}").main(argv)
