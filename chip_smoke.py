@@ -49,7 +49,7 @@ Phases, each of which raises on a failed check (exit code != 0):
 9. The speculative path: bf16 GPT-L target cut to 12 layers, a W4 copy
    of it drafting (self-speculation), k = 4, batch 8 + CFG 4.0, sampled,
    576 tokens; counters exactly 12 * (k + 2) * rounds (K5) and 5 * 12 *
-   (k + 1) * rounds (K3). Then the same at full depth through the CLIs (`tools quantize-ckpt
+   (k + 1) * rounds (K3). Then the same at 6 layers through the CLIs (`tools quantize-ckpt
    --mode w4` writes the draft checkpoint, `sample_c2i
    --draft-gpt-model`), and a greedy f32 check: 64 tokens of
    `generate_speculative` equal `generate`'s for the same target, at
@@ -94,10 +94,11 @@ Phases, each of which raises on a failed check (exit code != 0):
 16. The T5 caption encoder (`text/t5.py::T5Encoder`) at flan-t5-xl's
    widths, random weights: bf16 against f32 on the card, 4 x 120 ids with
    right-padded masks.
-17. The t2i sampling path: GPT-XL 512 px (120 caption tokens + 1,024
-   image tokens), bf16 weights and cache, 4 captions left-padded by 0,
-   60, 100 and 119 + CFG 7.5, top-k 1000; K1 with `prefix_pad` exactly
-   36 * 1023 times; the VQ-16 decoder to finite [4, 512, 512, 3].
+17. The t2i sampling path: GPT-XL 512 px width (120 caption tokens +
+   1,024 image tokens) cut to 18 layers, bf16 weights and cache, 4
+   captions left-padded by 0, 60, 100 and 119 + CFG 7.5, top-k 1000; K1
+   with `prefix_pad` exactly 18 * 1023 times; the VQ-16 decoder to finite
+   [4, 512, 512, 3].
 18. The t2i serving engine at `tests/bench_t2i_engine.py`'s point (GPT-XL
    256 px, W8A16 layers and head + int8 KV, 8 pairs, 24 caption requests
    with pads in [0, 60)); the first admission and chunk under sync-debug
@@ -106,10 +107,10 @@ Phases, each of which raises on a failed check (exit code != 0):
    per step; img/s, TTFT, TPOT and e2e.
 19. Greedy f32 t2i engine == `generate(emb_masks=...)` (GPT-XL width, 2
    layers, W8A16 + int8 KV, 48 tokens across the flushes at 127 and 159).
-20. The t2i speculative path: GPT-XL 512 cut to 18 layers, bf16 target, a
+20. The t2i speculative path: GPT-XL 512 cut to 4 layers, bf16 target, a
    W4 copy of it drafting, k 4, the 4 padded captions of phase 17 + CFG
    7.5, top-k 1000, 1,024 tokens; K5 with `prefix_pad` in every draft and
-   verify step: counters exactly 18 * (k + 2) * rounds (K5) and 5 * 18 *
+   verify step: counters exactly 4 * (k + 2) * rounds (K5) and 5 * 4 *
    (k + 1) * rounds (K3), K1 none.
 21. Greedy f32 t2i speculative == `generate` (GPT-XL width, 2 layers, W4
    self-draft, k 4; K5 at 20 heads with `prefix_pad`, counted).
@@ -216,6 +217,41 @@ Phases, each of which raises on a failed check (exit code != 0):
    layouts: PSNR / SSIM and seconds per image; sd-vae's and taming's
    roundtrips of 1 image within 1e-4 of the CPU port's.
 
+43. Tensor parallelism, the kernels (`check_tp_kernels`): K1 (int8 and
+   bf16 caches) at a tp-2 rank's heads, GPT-XXL's 12 (B 16, slot
+   positions) and GPT-XL's 10 with the t2i pads; K2 at GPT-XXL tp 2's
+   four shard shapes (B 16) and GPT-XL tp 2's wqkv shard at a 4-pair
+   admission's 960 rows; K3 (per-shard g128) at GPT-XXL tp 2's shards;
+   K4 at GPT-L tp 2's [16, 576, 8, 64]: each against its plain version
+   (phase 2's tolerances), then timed beside it, its bound and its
+   library call.
+44. The TP slot engine in two gloo ranks sharing the card (`--rank-worker
+   tp_serving`): GPT-XXL 384 width cut to 4 of 48 layers, tp 2, W8A16
+   layers with a bf16 head + int8 KV, 8 pairs, 12 requests (4 reuse a
+   slot) with mixed cfg 1.5 / 2.0 / 4.0 and temperature 1.0 / 0.7 /
+   greedy; each rank's counters exactly 4 * steps (K1), 5 * 4 * steps
+   (K2: a c2i admission runs no prefill, the bf16 head no K2), no K3 or
+   K5; the tokens equal on both ranks; img/s, ms a step, each rank's
+   device busy share of steps of the same engine, and the step's
+   collectives timed alone (8 all-reduces and the logits' gather over
+   gloo). Then the per-shard W4 engine (8 requests of 192 tokens): K3
+   exactly 5 * 4 * steps, K2 none.
+45. The t2i TP engine (GPT-XL 256 px width, 4 of 36 layers, W8A16 + bf16
+   head + int8 KV, 4 pairs, CFG 7.5, the pads of phase 17): one batched
+   admission prefill of the 4 pairs, as on one card, exactly 0 K1 and 5 *
+   4 K2, each step 4 K1 (with `prefix_pad`) and 5 * 4 K2; tokens equal
+   on both ranks. Then greedy f32 TP engine == the one-card `generate`
+   at GPT-XXL width, 2 layers.
+46. TP training (`--rank-worker tp_train`, two gloo ranks): GPT-L width
+   cut to 4 layers, global batch 16, f32, 3 steps through `build_trainer`
+   on a (1, 1, 2) mesh against one process (TWO_RANK_BOUNDS), K4 exactly
+   2 * 4 * 3 and 4 * 3 per rank; then `cli/train_c2i.py --tp 2 --fsdp 1
+   --backend gloo` (bf16) for 3 steps, the same counts, its whole-model
+   export loaded by `load_gpt`; the step's logits gather ([16, 576, 8192]
+   f32 a rank, `all_gather_into_tensor`) timed alone.
+47. FSDP2 x TP at (1, 2, 2): four gloo ranks, one f32 step against one
+   process's first (TWO_RANK_BOUNDS).
+
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
 versions, K2 at the GPT-XL shapes (B 16 and the admission's 1,920 rows),
@@ -227,8 +263,9 @@ convolutions. The
 last line is `{"ok": true, "device": {...}}`; the line before it is the
 kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
 library time; then K1, K2 and K5 again at the t2i sampling shapes, K4 at
-the t2i training shape, and K2, K3 and K5 on the speculative engine's
-path), the one before that the card's name and power limit.
+the t2i training shape, K2, K3 and K5 on the speculative engine's path,
+K1 on the FID samplers' paths, and K1, K2, K3 and K4 at the TP ranks'
+shapes), the one before that the card's name and power limit.
 Needs a CUDA device; runs nothing without one.
 """
 
@@ -258,8 +295,13 @@ VQ_CPU_IMAGES = 2  # the f32 encode held to the CPU's on these images
 H100_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet (SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3, the same data sheet
 SPEC_K, SPEC_CFG = 4, 4.0  # the sampling CLI's default --spec-k, --cfg-scale
-SPEC_LAYERS = 12  # the speculative path's depth (its CLI runs all 24)
-T2I_SPEC_LAYERS = 18  # the t2i speculative path's depth (GPT-XL has 36)
+# the speculative paths' depth (GPT-L has 24): the path, GPTQ + AWQ and
+# the engine at 12; the speculative CLI at 6 (all 24 until the TP phases
+# joined the smoke's clock)
+SPEC_LAYERS, SPEC_CLI_LAYERS = 12, 6
+# the t2i paths' depths (GPT-XL has 36; the speculative path had 18 and
+# `generate` all 36 until the TP phases joined the smoke's clock)
+T2I_SPEC_LAYERS, T2I_PATH_LAYERS = 4, 18
 # bench.py's engine point (64 pairs, int8 head, chunk 64); 80 requests: a
 # full wave and 16 that reuse a slot
 ENGINE_PAIRS, ENGINE_REQUESTS, ENGINE_CHUNK = 64, 80, 64
@@ -975,21 +1017,22 @@ def check_w4_matmul(dev):
     return worst, time_w4_matmul(dev)
 
 
-def time_w4_matmul(dev, full=True):
-    """K3 per call at the five GPT-L layer shapes, B 16 and 80: grouped
-    g128 (the quantize_gpt_params_w4k defaults), bf16 x, enough buffer sets
-    per shape (>= 24, >= 128 MB) that the weights stream from memory, not
-    from the 50 MB L2. With `full`, also the plain version, the bound and
-    `torch._weight_int4pack_mm` (tinygemm) on the same inputs."""
+def time_w4_matmul(dev, full=True, shapes=None, bs=(16, 80)):
+    """K3 per call at the five GPT-L layer shapes (or `shapes`), B 16 and
+    80 (or `bs`): grouped g128 (the quantize_gpt_params_w4k defaults),
+    bf16 x, enough buffer sets per shape (>= 24, >= 128 MB) that the
+    weights stream from memory, not from the 50 MB L2. With `full`, also
+    the plain version, the bound and `torch._weight_int4pack_mm`
+    (tinygemm) on the same inputs."""
     from llamagen_tpu_torch.ops.w4_matmul import (pack_w4, w4_dequant,
                                                   w4_matmul, w4_matmul_ref)
     g = torch.Generator(device=dev).manual_seed(14)
     timings = {}
-    for name, (k, n) in GPT_L_MATMULS.items():
+    for name, (k, n) in (shapes or GPT_L_MATMULS).items():
         sets = max(24, -(-128 * 2 ** 20 // (k * n // 2)))
         layers = [pack_w4(torch.randn(k, n, generator=g, device=dev) * 0.02)
                   for _ in range(sets)]
-        for b in (16, 80):
+        for b in bs:
             x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
             ms = graph_ms([lambda w=w: w4_matmul(x, *w) for w in layers])
             gbs = k * n / 2 / (ms * 1e-3) / 1e9
@@ -1253,8 +1296,8 @@ def run_w4_path(dev):
 
 
 def run_speculative(dev, n_layer=SPEC_LAYERS):
-    """Self-speculation at GPT-L 384 width, cut to `n_layer` layers (the
-    speculative CLI runs all 24): the bf16 target, a grouped-W4 copy of it
+    """Self-speculation at GPT-L 384 width, cut to `n_layer` layers (as
+    the speculative CLI is): the bf16 target, a grouped-W4 copy of it
     as the draft, k = 4, batch 8 + CFG 4.0, sampled, 576 tokens, bf16
     caches. Each round runs k + 1 draft steps (C = 1) and one verify
     (C = 5), all on K5: counters n_layer * (k + 2) * rounds (K5) and
@@ -1305,27 +1348,32 @@ def run_speculative(dev, n_layer=SPEC_LAYERS):
 
 
 def run_spec_cli(dev):
-    """The speculative path through its CLIs: a random GPT-L 384 checkpoint,
-    `tools quantize-ckpt --mode w4` of it as the draft checkpoint, then
-    `sample_c2i --draft-gpt-model GPT-L` (k 4, CFG 4.0, bf16)."""
+    """The speculative path through its CLIs: a random checkpoint of GPT-L
+    384 width at SPEC_CLI_LAYERS layers (all 24 until the TP phases joined
+    the smoke's clock), `tools quantize-ckpt --mode w4` of it as the draft
+    checkpoint, then `sample_c2i --draft-gpt-model` (k 4, CFG 4.0,
+    bf16)."""
     from llamagen_tpu_torch.cli import sample_c2i, tools
+    name = spec_model_entry(SPEC_CLI_LAYERS)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "gpt_l_random.pt")
         draft = os.path.join(tmp, "gpt_l_random_w4.pt")
-        torch.save(gpt_model(dev, seed=3).state_dict(), ckpt)
+        torch.save(gpt_model(dev, seed=3, n_layer=SPEC_CLI_LAYERS)
+                   .state_dict(), ckpt)
         tools.main(["quantize-ckpt", "--in", ckpt, "--out", draft,
-                    "--mode", "w4", "--gpt-model", "GPT-L",
+                    "--mode", "w4", "--gpt-model", name,
                     "--image-size", "384", "--device", "cuda"])
         out = os.path.join(tmp, "grid.png")
         res = sample_c2i.main([
-            "--gpt-model", "GPT-L", "--gpt-ckpt", ckpt,
-            "--draft-gpt-model", "GPT-L", "--draft-gpt-ckpt", draft,
+            "--gpt-model", name, "--gpt-ckpt", ckpt,
+            "--draft-gpt-model", name, "--draft-gpt-ckpt", draft,
             "--spec-k", str(SPEC_K), "--image-size", "384",
             "--precision", "bf16", "--device", "cuda", "--out", out])
         png_ok = os.path.getsize(out) > 0
         draft_mb = os.path.getsize(draft) / 1e6
     n = res.images.shape[0]
-    log(f"CLI speculative sample_c2i (GPT-L 384 bf16 target, W4 checkpoint "
+    log(f"CLI speculative sample_c2i ({name} 384 bf16 target, W4 "
+        f"checkpoint "
         f"of it as the draft, {draft_mb:.1f} MB, k {SPEC_K}, {n} images + "
         f"CFG {SPEC_CFG}): {res.rounds} rounds, {TOKENS / res.rounds:.3f} "
         f"tokens/round, sampling {res.gen_seconds:.3f} s = "
@@ -1612,15 +1660,16 @@ def run_t5_encoder(dev):
 def run_t2i_path(dev):
     """`generate` for t2i at 512 px: GPT-XL, bf16 weights and cache, 4
     captions left-padded by 0, 60, 100 and 119 + CFG 7.5, top-k 1000,
-    1,024 tokens, then the VQ-16 decoder to [4, 512, 512, 3]. K1 runs with
-    `prefix_pad` in every layer of every step: exactly 36 * 1023 launches,
-    K2 none (bf16 weights)."""
+    1,024 tokens, then the VQ-16 decoder to [4, 512, 512, 3]; GPT-XL's
+    widths at T2I_PATH_LAYERS layers. K1 runs with `prefix_pad` in every
+    layer of every step: exactly n_layer * 1023 launches, K2 none (bf16
+    weights)."""
     from llamagen_tpu_torch.config import vq_config
     from llamagen_tpu_torch.models import vq
     from llamagen_tpu_torch.ops.attention import decode_attention
     from llamagen_tpu_torch.ops.generate import generate
     from llamagen_tpu_torch.ops.quant_matmul import int8_matmul
-    model = t2i_model(dev, 512)
+    model = t2i_model(dev, 512, n_layer=T2I_PATH_LAYERS)
     caps, masks = t2i_captions(dev, T2I_PADS, seed=90)
     tokens_n = model.cfg.block_size
     kw = dict(emb_masks=masks, cfg_scale=T2I_CFG, top_k=T2I_TOP_K,
@@ -1638,7 +1687,8 @@ def run_t2i_path(dev):
     secs = time.time() - t0
     k1, k2 = decode_attention.launches, int8_matmul.launches
     n_layer = model.cfg.n_layer
-    log(f"t2i sampling path (GPT-XL 512, bf16 weights + cache, "
+    log(f"t2i sampling path (GPT-XL 512 width, {n_layer} layers, bf16 "
+        f"weights + cache, "
         f"{T2I_BATCH} captions with pads {T2I_PADS} + CFG {T2I_CFG}, top-k "
         f"{T2I_TOP_K}): {tokens_n} tokens in {secs:.3f} s = "
         f"{T2I_BATCH / secs:.4f} img/s, {1e3 * secs / tokens_n:.3f} "
@@ -1952,12 +2002,15 @@ def run_t2i_cli(dev):
 # ---------------------------------------------------------------------------
 
 
-def spec_model_entry():
-    """SPEC_MODEL in the port's zoo (GPT-L's widths at SPEC_LAYERS layers),
-    so that the CLIs take the cut model by name."""
+def spec_model_entry(n_layer=SPEC_LAYERS):
+    """"GPT-L-{n_layer}" in the port's zoo (GPT-L's widths at `n_layer`
+    layers), so that the CLIs take the cut model by name; returns the
+    name."""
     from llamagen_tpu_torch import config
-    config.GPT_CONFIGS[SPEC_MODEL] = lambda **kw: config.replace(
-        config.gpt_config("GPT-L", **kw), n_layer=SPEC_LAYERS)
+    name = f"GPT-L-{n_layer}"
+    config.GPT_CONFIGS[name] = lambda **kw: config.replace(
+        config.gpt_config("GPT-L", **kw), n_layer=n_layer)
+    return name
 
 
 def weighted_error(dw, h):
@@ -3236,11 +3289,13 @@ def world1_worker(dev, args):
     return out
 
 
-def two_rank_c2i(dev, mesh, path=None):
-    """3 steps of GPT-L width cut to TWO_RANK_LAYERS layers, f32 compute,
-    full remat, dropout off, a random head built on the CPU, global batch
-    TWO_RANK_BATCH (this rank's rows with a mesh): losses, grad norms, K4
-    launches; the whole parameters saved to `path` (rank 0)."""
+def two_rank_c2i(dev, mesh, path=None, steps=DIST_STEPS):
+    """`steps` steps of GPT-L width cut to TWO_RANK_LAYERS layers, f32
+    compute, full remat, dropout off, a random head built on the CPU,
+    global batch TWO_RANK_BATCH (this rank's rows with a mesh; a TP rank's
+    shard of the model where the mesh's tp > 1): losses, grad norms, K4
+    launches; the whole parameters (TP shards gathered) saved to `path`
+    (rank 0)."""
     from llamagen_tpu_torch.config import gpt_config, replace
     from llamagen_tpu_torch.models import gpt
     from llamagen_tpu_torch.parallel.mesh import shard_batch
@@ -3261,13 +3316,13 @@ def two_rank_c2i(dev, mesh, path=None):
     for f in k4_kernels():
         f.launches = 0
     out = {"loss": [], "grad_norm": [], "step_s": []}
-    for i in range(DIST_STEPS):
+    for i in range(steps):
         t0 = time.time()
         batch = c2i.Batch(
             torch.randint(0, 1000, (TWO_RANK_BATCH,), generator=g),
             torch.randint(0, 16384, (TWO_RANK_BATCH, TOKENS), generator=g))
         if mesh is not None:
-            batch = shard_batch(batch)
+            batch = shard_batch(batch, mesh=mesh)
         state, m = step(state, c2i.Batch(batch.labels.to(dev),
                                          batch.tokens.to(dev)), 0)
         out["loss"].append(m["loss"].item())  # waits for the step
@@ -3279,8 +3334,11 @@ def two_rank_c2i(dev, mesh, path=None):
     if mesh is None:
         out["params"] = {k: v.detach().cpu()
                          for k, v in state.model.state_dict().items()}
-    else:
+    elif path is not None:
         full = whole_params_on_cpu(state.model)
+        if state.model.tp_size > 1:
+            from llamagen_tpu_torch.parallel.tp_decode import whole_tp_state
+            full = whole_tp_state(state.model, full)
         if torch.distributed.get_rank() == 0:
             torch.save(full, path)
         del full
@@ -3857,6 +3915,537 @@ def run_baselines(dev, tmp):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phases 43-47: tensor parallelism (two or four gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+
+# serving: GPT-XXL 384 px (24 heads of 64, ffn 4096), depth cut 48 -> 4 for
+# the smoke's clock, tp 2: each rank 12 heads, its [16, S, 1536] int8 cache
+TP, TP_MODEL, TP_LAYERS = 2, "GPT-XXL", 4
+TP_PAIRS, TP_REQUESTS, TP_CHUNK = 8, 12, 64
+# t2i: GPT-XL 256 px (10 heads a rank), depth cut 36 -> 4, 4 captions
+# with phase 17's pads, admitted by one prefill (2 x 4 x 120 rows, K2)
+TP_T2I_LAYERS, TP_T2I_PAIRS = 4, 4
+TP_ADMIT_ROWS = 2 * TP_T2I_PAIRS * T2I_T
+# the per-shard W4 engine: 8 requests of TP_W4_TOKENS tokens
+TP_W4_TOKENS = 192
+# the per-rank matmul shapes (K, N) of GPT-XXL at tp 2, and GPT-XL's wqkv
+TP_XXL_MATMULS = {"XXL/2 wqkv": (1536, 2304), "XXL/2 wo": (768, 1536),
+                  "XXL/2 w1": (1536, 2048), "XXL/2 w2": (2048, 1536)}
+TP_XL_WQKV = {"XL/2 wqkv": (1280, 1920)}
+# training: GPT-L width cut to 4 layers, global batch 16 (every rank of the
+# TP group holds the 16 rows), 8 heads a rank: K4's shape in every layer
+TP_TRAIN_SHAPE = (TWO_RANK_BATCH, TOKENS, 8, 64)
+TP_TRAIN_MODEL = f"GPT-L-{TWO_RANK_LAYERS}"
+
+
+def tp_train_model_entry():
+    """TP_TRAIN_MODEL in the port's zoo (GPT-L's widths at TWO_RANK_LAYERS
+    layers), so that the training CLI takes it by name."""
+    from llamagen_tpu_torch import config
+    config.GPT_CONFIGS[TP_TRAIN_MODEL] = lambda **kw: config.replace(
+        config.gpt_config("GPT-L", **kw), n_layer=TWO_RANK_LAYERS)
+
+
+def check_tp_kernels(dev):
+    """K1, K2, K3 and K4 against their plain versions at the TP ranks'
+    shapes (phase 2's tolerances): K1 with int8 and bf16 caches at GPT-XXL
+    tp 2's 12 heads (B 16, slot positions) and GPT-XL tp 2's 10 heads with
+    the t2i pads; K2 at GPT-XXL tp 2's four shard shapes, B 16, and GPT-XL
+    tp 2's wqkv shard at an admission's 960 rows; K3 (per-shard g128)
+    at GPT-XXL tp 2's shards, B 16; K4 at GPT-L tp 2's [16, 576, 8, 64].
+    Then each one's time beside its plain version, bound and library
+    call. Returns (worst errors, times)."""
+    from llamagen_tpu_torch.ops.attention import (decode_attention,
+                                                  decode_attention_ref)
+    from llamagen_tpu_torch.ops import train_attention as ta
+    from llamagen_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                     int8_matmul_ref,
+                                                     quantize_weight)
+    from llamagen_tpu_torch.ops.w4_matmul import (pack_w4, w4_matmul,
+                                                  w4_matmul_ref)
+    g = torch.Generator(device=dev).manual_seed(81)
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    for i, (cache, h, b, s, t2i) in enumerate(
+            [(c, 12, 2 * TP_PAIRS, 640, False) for c in ("int8", "bf16")]
+            + [(c, 10, 2 * TP_T2I_PAIRS, 384, True)
+               for c in ("int8", "bf16")]):
+        q, kv_new, kv, extra = attention_state(dev, b, h, h, s, cache,
+                                               200 + i)
+        if t2i:
+            pos, pad = t2i_rows(dev, b, s, g)
+        else:
+            pad = None
+            pos = torch.randint(0, 577, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+            pos[:4] = torch.tensor([0, 31, 32, 576], device=dev)
+        kv_ref = kv.clone()
+        extra_ref = {k: v.clone() for k, v in extra.items()}
+        out = decode_attention(q, kv_new, kv, pos, h, prefix_pad=pad,
+                               **extra)
+        ref = decode_attention_ref(q, kv_new, kv_ref, pos, h,
+                                   prefix_pad=pad, **extra_ref)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        tol = 2 ** -6 * max(1.0, ref.float().abs().max().item())
+        same = torch.equal(kv, kv_ref) and all(
+            torch.equal(extra[k], extra_ref[k]) for k in extra)
+        log(f"K1 at a TP rank's shape: {cache} cache, B {b}, S {s}, {h} "
+            f"heads{', t2i pads' if t2i else ''}: max_abs_err {err:.3g} "
+            f"(tol {tol:.3g}), cache/scales/tail equal: {same}")
+        if not (err <= tol and same):
+            raise AssertionError(f"K1 TP {cache} {h} heads disagrees")
+        worst["K1"] = max(worst["K1"], err)
+    for name, (k, n) in {**TP_XXL_MATMULS, **TP_XL_WQKV}.items():
+        w_q, w_s = quantize_weight(torch.randn(k, n, generator=g, device=dev)
+                                   * 0.02)
+        blocks, scales = pack_w4(torch.randn(k, n, generator=g, device=dev)
+                                 * 0.02)
+        for b in ((16,) if name in TP_XXL_MATMULS else (TP_ADMIT_ROWS,)):
+            x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
+            pairs = [("K2", int8_matmul(x, w_q, w_s),
+                      int8_matmul_ref(x, w_q, w_s))]
+            if name in TP_XXL_MATMULS:
+                pairs.append(("K3", w4_matmul(x, blocks, scales),
+                              w4_matmul_ref(x, blocks, scales)))
+            torch.cuda.synchronize()
+            for kern, out, ref in pairs:
+                err = max_err(out, ref)
+                tol = 2 ** -7 * ref.float().abs().max().item()
+                log(f"{kern} at a TP rank's shape: {name} [{b},{k}]x[{k},"
+                    f"{n}] bf16 x: max_abs_err {err:.3g} (tol {tol:.3g})")
+                if not err <= tol:
+                    raise AssertionError(f"{kern} TP {name} disagrees")
+                worst[kern] = max(worst[kern], err)
+    q, k, v, w = attention_inputs(dev, TP_TRAIN_SHAPE, torch.bfloat16, 83)
+    got = attention_grads(ta.causal_attention_padded, q, k, v, w)
+    ref = attention_grads(ta.causal_attention_ref, q, k, v, w)
+    rel = [max_err(a, r) / max(r.float().abs().max().item(), 1.0)
+           for a, r in zip(got, ref)]
+    log(f"K4 at a TP rank's shape {list(TP_TRAIN_SHAPE)} bf16 (v strided):"
+        f" relative max err o {rel[0]:.3g} (tol 0.01), dq {rel[1]:.3g}, dk "
+        f"{rel[2]:.3g}, dv {rel[3]:.3g} (tol 0.02)")
+    if not (rel[0] <= 1e-2 and max(rel[1:]) <= 2e-2):
+        raise AssertionError("K4 at the TP shape disagrees")
+    worst["K4"] = {"fwd": max_err(got[0], ref[0]),
+                   "dq": max_err(got[1], ref[1]),
+                   "dkdv": max(max_err(got[2], ref[2]),
+                               max_err(got[3], ref[3]))}
+    del got, ref, q, k, v, w
+    times = time_decode_attention(dev, shapes=(("int8", 12, 64),),
+                                  b=2 * TP_PAIRS, tag=" tp")
+    times.update(time_decode_attention(
+        dev, shapes=(("int8", 10, 64),), b=2 * TP_T2I_PAIRS, s=384, pos=248,
+        pads=T2I_PADS, tag=" tp t2i"))
+    times.update(time_int8_matmul(dev, shapes=TP_XXL_MATMULS, tag=" tp"))
+    times.update(time_int8_matmul(dev, b=TP_ADMIT_ROWS, shapes=TP_XL_WQKV,
+                                  tag=" tp"))
+    times.update(time_w4_matmul(dev, shapes={"XXL/2 wqkv": (1536, 2304)},
+                                bs=(16,)))
+    times["K4"] = time_train_attention(dev, TP_TRAIN_SHAPE, 84,
+                                       "GPT-L tp 2 rank's training shape")
+    return worst, times
+
+
+def _tp_shard(model, mesh):
+    from llamagen_tpu_torch.parallel.tp_decode import shard_tp_params
+    return shard_tp_params(model, mesh.get_local_rank("tp"),
+                           mesh["tp"].size(), mesh["tp"].get_group())
+
+
+def _digest(tokens):
+    return hashlib.sha1(np.ascontiguousarray(tokens, np.int64)
+                        .tobytes()).hexdigest()
+
+
+def time_all_reduces(dev, n_layer, rows, dim, vocab, reps=20):
+    """ms of one step's collectives alone over the rank's group: 2 *
+    n_layer all-reduces of [rows, dim] bf16 and the logits' gather ([rows,
+    vocab / tp] f32 into [rows, vocab]), synchronised after each."""
+    from llamagen_tpu_torch.parallel import collectives
+    group = torch.distributed.group.WORLD
+    x = torch.randn(rows, dim, device=dev).to(torch.bfloat16)
+    y = torch.randn(rows, vocab // TP, device=dev)
+    for _ in range(3):
+        collectives.reduce_from_tp(x, group)
+        collectives.gather_from_tp(y, group)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        for _ in range(2 * n_layer):
+            collectives.reduce_from_tp(x, group)
+        collectives.gather_from_tp(y, group)
+        torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / reps
+
+
+def time_train_gather(dev, reps=2):
+    """ms of the TP training step's logits gather alone: [TWO_RANK_BATCH,
+    TOKENS, vocab / tp] f32 on each rank into the whole vocabulary
+    (`collectives.gather_from_tp`, `all_gather_into_tensor`)."""
+    from llamagen_tpu_torch.parallel import collectives
+    group = torch.distributed.group.WORLD
+    y = torch.randn(TWO_RANK_BATCH, TOKENS, 16384 // TP, device=dev)
+    collectives.gather_from_tp(y, group)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        collectives.gather_from_tp(y, group)
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / reps
+
+
+def tp_engine_run(dev, mesh, model, label, cache_dtype, n_requests,
+                  sps=None, tokens=TOKENS):
+    """One TP engine run on the rank's shard `model`: a warm-up of 16
+    tokens, then `n_requests` c2i requests (per-request SamplingParams
+    `sps`) of `tokens` tokens through TP_PAIRS pairs; its counters, steps, img/s, ms a step, the tokens'
+    digest, then (after the counters are read) the device's busy share of
+    8 more steps of the same engine, whose slots keep stepping at the
+    last position once they finish."""
+    from llamagen_tpu_torch.serve.engine import ServeEngine
+    kw = dict(num_pairs=TP_PAIRS, chunk=TP_CHUNK, mesh=mesh, tp=TP,
+              compute_dtype=torch.bfloat16, cache_dtype=cache_dtype)
+    ServeEngine(model, max_new_tokens=16, **kw).generate(range(TP_PAIRS))
+    eng = ServeEngine(model, max_new_tokens=tokens, **kw)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    reqs = [eng.submit(i * 37 % 1000, sp=None if sps is None else sps[i])
+            for i in range(n_requests)]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts, steps = read_counters(), eng.steps_run
+    result = np.stack([r.result for r in reqs])
+    state = eng.state
+    wall, busy = device_busy(lambda: eng.step_fn(state, None, None, None, 8),
+                             8)
+    out = {"counts": counts, "steps": steps, "s": secs,
+           "img_s": n_requests / secs, "ms_step": 1e3 * secs / steps,
+           "busy_wall_ms": wall, "busy_ms": busy,
+           "digest": _digest(result),
+           "in_range": bool(result.min() >= 0
+                            and result.max() < model.cfg.vocab_size
+                            and result.shape == (n_requests, tokens))}
+    log(f"rank {torch.distributed.get_rank()} {label}: {secs:.3f} s = "
+        f"{out['img_s']:.3f} img/s, {steps} steps = {out['ms_step']:.3f} "
+        f"ms/step; a steady step {wall:.3f} ms wall, device busy "
+        f"{busy if busy is None else round(busy, 3)} ms; launches {counts}")
+    del eng, state
+    return out
+
+
+def tp_t2i_run(dev, mesh):
+    """The t2i TP engine (GPT-XL 256 px width, TP_T2I_LAYERS layers, W8A16
+    layers, bf16 head, int8 KV, TP_T2I_PAIRS pairs, CFG 7.5) on 4 captions
+    with pads 0 / 60 / 100 / 119: counters read around each admission
+    prefill and each chunk."""
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    model = _tp_shard(quantize_gpt_params(t2i_model(
+        dev, 256, seed=93, n_layer=TP_T2I_LAYERS)), mesh)
+    caps, masks = t2i_captions(dev, T2I_PADS, 94)
+    eng = ServeEngine(model, max_new_tokens=model.cfg.block_size,
+                      num_pairs=TP_T2I_PAIRS, chunk=TP_CHUNK, mesh=mesh,
+                      tp=TP, compute_dtype=torch.bfloat16,
+                      cache_dtype=torch.int8,
+                      sampling_params=SamplingParams(cfg_scale=T2I_CFG))
+    per_admission, per_chunk = [], []
+
+    def counted(fn, into):
+        def call(*args):
+            before = read_counters()
+            out = fn(*args)
+            after = read_counters()
+            into.append((args[-2] if into is per_chunk else 1,
+                         {k: after[k] - before[k] for k in after}))
+            return out
+        return call
+
+    eng._admit_fn = counted(eng._admit_fn, per_admission)
+    eng.step_fn = counted(eng.step_fn, per_chunk)
+    zero_counters()
+    t0 = time.time()
+    reqs = [eng.submit_caption(c, m) for c, m in zip(caps.float().cpu(),
+                                                     masks.cpu())]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    tokens = np.stack([r.result for r in reqs])
+    out = {"admissions": per_admission, "chunks": per_chunk,
+           "counts": read_counters(), "steps": eng.steps_run,
+           "n_admissions": eng.admissions, "s": secs,
+           "digest": _digest(tokens), "n_layer": model.cfg.n_layer}
+    log(f"rank {torch.distributed.get_rank()} t2i TP engine: {secs:.3f} s, "
+        f"{eng.steps_run} steps, {eng.admissions} admission prefills; "
+        f"launches {out['counts']}")
+    return out
+
+
+def tp_greedy_run(dev, mesh):
+    """Greedy f32 TP engine == the one-card port `generate` at GPT-XXL
+    width, 2 layers (f32 caches), 4 labels, 64 tokens, cfg 2.0; both on
+    this rank's card."""
+    from llamagen_tpu_torch.ops.generate import generate
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    labels = [207, 360, 387, 974]
+    whole = gpt_model(dev, seed=95, dtype=torch.float32, name=TP_MODEL,
+                      n_layer=2)
+    ref = generate(whole, torch.tensor(labels, device=dev),
+                   max_new_tokens=64, cfg_scale=CFG_SCALE,
+                   sample_logits=False, compute_dtype=torch.float32,
+                   cache_dtype=torch.float32).cpu().numpy()
+    eng = ServeEngine(_tp_shard(whole, mesh), num_pairs=2, max_new_tokens=64,
+                      chunk=16, compute_dtype=torch.float32, mesh=mesh,
+                      tp=TP, sampling_params=SamplingParams(
+                          cfg_scale=CFG_SCALE, temperature=0.0))
+    got = eng.generate(labels)
+    return {"equal": bool((got == ref).all()), "digest": _digest(got),
+            "distinct": int(len(np.unique(ref)))}
+
+
+def tp_serving_worker(dev, args):
+    """Phases 44-45, one of two gloo ranks on the card (tp 2): the GPT-XXL
+    W8A16 + int8-KV engine with mixed cfg / temperature, the per-shard W4
+    engine, the t2i engine, the greedy f32 check and the collectives'
+    time."""
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.parallel.mesh import make_mesh
+    from llamagen_tpu_torch.parallel.tp_decode import \
+        quantize_gpt_params_w4k_tp
+    from llamagen_tpu_torch.serve.engine import SamplingParams
+    mesh = make_mesh(1, 1, TP, dev.type)
+    out = {}
+    model = _tp_shard(quantize_gpt_params(gpt_model(
+        dev, seed=71, name=TP_MODEL, n_layer=TP_LAYERS)), mesh)
+    sps = [SamplingParams(cfg_scale=(1.5, 2.0, 4.0)[i % 3],
+                          temperature=0.0 if i % 4 == 3 else (1.0, 0.7)[i % 2])
+           for i in range(TP_REQUESTS)]
+    out["w8a16"] = tp_engine_run(
+        dev, mesh, model, f"{TP_MODEL} tp {TP} W8A16 + int8 KV engine, "
+        f"{TP_LAYERS} layers", torch.int8, TP_REQUESTS, sps)
+    cfg = model.cfg
+    del model
+    _free()
+    out["allreduce_ms"] = time_all_reduces(dev, TP_LAYERS, 2 * TP_PAIRS,
+                                           cfg.dim, cfg.vocab_size)
+    model = _tp_shard(quantize_gpt_params_w4k_tp(gpt_model(
+        dev, seed=73, name=TP_MODEL, n_layer=TP_LAYERS), TP), mesh)
+    out["w4"] = tp_engine_run(
+        dev, mesh, model, f"{TP_MODEL} tp {TP} per-shard W4 engine, "
+        f"{TP_LAYERS} layers, {TP_W4_TOKENS} tokens", torch.bfloat16,
+        TP_PAIRS, tokens=TP_W4_TOKENS)
+    del model
+    _free()
+    out["t2i"] = tp_t2i_run(dev, mesh)
+    _free()
+    out["greedy"] = tp_greedy_run(dev, mesh)
+    return out
+
+
+def run_tp_serving(dev):
+    """Phases 44-45: `tp_serving_worker` in two gloo ranks on the card;
+    tokens equal on both ranks, exact per-rank counters, greedy f32 ==
+    the one-card `generate`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        recs = launch_ranks(2, "tp_serving", {"dir": tmp, "backend": "gloo"})
+        log(f"TP serving launch: {time.time() - t0:.1f} s")
+    out = {}
+    L = TP_LAYERS
+    for name, want_k3, want_k2 in (("w8a16", 0, 5 * L), ("w4", 5 * L, 0)):
+        for r in recs:
+            got = r[name]
+            want = {"decode_attention": L * got["steps"],
+                    "int8_matmul": want_k2 * got["steps"],
+                    "w4_matmul": want_k3 * got["steps"],
+                    "chunk_decode_attention": 0}
+            log(f"TP {name} engine rank {r['rank']}: launches {got['counts']}"
+                f", expected {want} ({got['steps']} steps; a c2i admission "
+                f"runs no prefill and the bf16 head no K2); device busy "
+                f"{got['busy_ms']} of {got['busy_wall_ms']:.3f} ms a step")
+            if any(got["counts"][k] != v for k, v in want.items()) \
+                    or not got["in_range"]:
+                raise AssertionError(f"TP {name} rank {r['rank']}: {got}")
+        if recs[0][name]["digest"] != recs[1][name]["digest"]:
+            raise AssertionError(f"TP {name}: the ranks' tokens differ")
+        slow = max(recs, key=lambda r: r[name]["s"])[name]
+        out[name] = {"launches": recs[0][name]["counts"],
+                     "img_s": slow["img_s"], "ms_step": slow["ms_step"],
+                     "busy": [(r[name]["busy_ms"], r[name]["busy_wall_ms"])
+                              for r in recs]}
+        log(f"TP {name} engine: tokens equal on both ranks; "
+            f"{out[name]['img_s']:.3f} img/s, {out[name]['ms_step']:.3f} ms"
+            f" a step (slower rank), busy share per rank "
+            f"{[None if b is None else round(b / w, 4) for b, w in out[name]['busy']]}")
+    ar = max(r["allreduce_ms"] for r in recs)
+    out["allreduce_share"] = ar / out["w8a16"]["ms_step"]
+    log(f"TP collectives of one step alone ({2 * L} all-reduces of "
+        f"[{2 * TP_PAIRS}, 1536] bf16 + the logits' gather) over gloo "
+        f"between the ranks sharing the card: {ar:.3f} ms = "
+        f"{100 * out['allreduce_share']:.1f} % of the W8A16 engine's step")
+    for r in recs:
+        t = r["t2i"]
+        L2 = t["n_layer"]
+        # one prefill admits every pending pair, up to min(P, 8) at a time
+        n_adm = -(-len(T2I_PADS) // min(TP_T2I_PAIRS, 8))
+        bad = [c for _, c in t["admissions"]
+               if (c["decode_attention"], c["int8_matmul"]) != (0, 5 * L2)]
+        bad += [c for n, c in t["chunks"]
+                if (c["decode_attention"], c["int8_matmul"])
+                != (L2 * n, 5 * L2 * n)]
+        log(f"TP t2i engine rank {r['rank']}: {t['n_admissions']} "
+            f"admission prefills (K1, K2) "
+            f"{[(c['decode_attention'], c['int8_matmul']) for _, c in t['admissions']]}"
+            f" (expected {n_adm} of (0, {5 * L2}): one K2 per layer matmul "
+            f"at {TP_ADMIT_ROWS} rows, W8A16 layers, bf16 head), "
+            f"{t['steps']} steps at ({L2}, {5 * L2}) a step, {t['s']:.2f} s")
+        if bad or t["n_admissions"] != n_adm \
+                or len(t["admissions"]) != n_adm \
+                or sum(n for n, _ in t["chunks"]) != t["steps"]:
+            raise AssertionError(f"TP t2i rank {r['rank']}: {bad[:4]}")
+    if recs[0]["t2i"]["digest"] != recs[1]["t2i"]["digest"]:
+        raise AssertionError("TP t2i: the ranks' tokens differ")
+    out["t2i"] = {"launches": recs[0]["t2i"]["counts"],
+                  "admission_k2": sum(c["int8_matmul"] for _, c in
+                                      recs[0]["t2i"]["admissions"])}
+    for r in recs:
+        log(f"greedy f32 {TP_MODEL}-width (2 layers) TP engine rank "
+            f"{r['rank']} == one-card generate: {r['greedy']['equal']} "
+            f"({r['greedy']['distinct']} distinct tokens)")
+        if not r["greedy"]["equal"]:
+            raise AssertionError("greedy f32 TP engine != generate")
+    if recs[0]["greedy"]["digest"] != recs[1]["greedy"]["digest"]:
+        raise AssertionError("greedy TP: the ranks' tokens differ")
+    return out
+
+
+def tp_train_worker(dev, args):
+    """Phase 46, one of two gloo ranks (tp 2): GPT-L width at
+    TWO_RANK_LAYERS layers, f32, 3 steps through `build_trainer` on a
+    (1, 1, 2) mesh (its whole parameters saved by rank 0), then the
+    training CLI `--tp 2 --fsdp 1 --backend gloo` (bf16, full remat) for
+    3 synthetic steps with its whole-model export; and the step's logits
+    gather timed alone."""
+    from llamagen_tpu_torch.cli import train_c2i
+    from llamagen_tpu_torch.parallel.mesh import make_mesh
+    tp_train_model_entry()
+    out = {"c2i": two_rank_c2i(dev, make_mesh(1, 1, TP, dev.type),
+                               os.path.join(args["dir"], "tp.pt")),
+           "gather_ms": time_train_gather(dev)}
+    for f in k4_kernels():
+        f.launches = 0
+    t0 = time.time()
+    state = train_c2i.main([
+        "--gpt-model", TP_TRAIN_MODEL, "--image-size", "384",
+        "--global-batch-size", str(TWO_RANK_BATCH), "--log-every", "1",
+        "--synthetic-steps", str(DIST_STEPS), "--tp", str(TP), "--fsdp", "1",
+        "--backend", "gloo", "--results-dir",
+        os.path.join(args["dir"], "cli"), "--device", "cuda"])
+    out["cli"] = {"step": state.step, "s": time.time() - t0,
+                  "launches": {f.__name__: f.launches
+                               for f in k4_kernels()}}
+    return out
+
+
+def tp_four_worker(dev, args):
+    """Phase 47, one of four gloo ranks: one f32 step at (1, 2, 2), FSDP2
+    over the fsdp pairs of each TP rank."""
+    from llamagen_tpu_torch.parallel.mesh import make_mesh
+    return {"c2i": two_rank_c2i(dev, make_mesh(1, 2, TP, dev.type),
+                                steps=1)}
+
+
+RANK_WORKERS.update({"tp_serving": tp_serving_worker,
+                     "tp_train": tp_train_worker,
+                     "tp_four": tp_four_worker})
+
+
+def run_tp_train(dev):
+    """Phases 46-47: `tp_train_worker` in two gloo ranks, `tp_four_worker`
+    in four, against one process (TWO_RANK_BOUNDS); K4 counters per rank
+    exactly 2 * L * steps and L * steps; the CLI's export through
+    `load_gpt`."""
+    from llamagen_tpu_torch.cli.common import load_gpt
+    tp_train_model_entry()
+    ref = two_rank_c2i(dev, None)
+    L = TWO_RANK_LAYERS
+    lr_sum = TWO_RANK_LR * (DIST_STEPS - 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        recs = launch_ranks(2, "tp_train", {"dir": tmp, "backend": "gloo"})
+        log(f"TP training launch: {time.time() - t0:.1f} s")
+        params = torch.load(os.path.join(tmp, "tp.pt"), weights_only=True)
+        perr = max((params[k] - v).abs().max().item()
+                   for k, v in ref["params"].items())
+        del params
+        export = os.path.join(tmp, "cli", "checkpoints",
+                              f"step_{DIST_STEPS:08d}_model.pt")
+        model = load_gpt(export, TP_TRAIN_MODEL, 384, 16, torch.float32, dev)
+        n = sum(p.numel() for p in model.parameters())
+        finite = all(torch.isfinite(p).all() for p in model.parameters())
+        del model
+    errs = {"loss": max(_rel(r["c2i"]["loss"], ref["loss"]) for r in recs),
+            "grad_norm": max(_rel(r["c2i"]["grad_norm"], ref["grad_norm"])
+                             for r in recs),
+            "param_lr": perr / lr_sum}
+    log(f"TP training (GPT-L width, {L} layers, batch {TWO_RANK_BATCH}, "
+        f"f32, tp 2): losses {[round(x, 6) for x in recs[0]['c2i']['loss']]}"
+        f" against {[round(x, 6) for x in ref['loss']]}; max relative "
+        f"differences loss {errs['loss']:.3g}, grad norm "
+        f"{errs['grad_norm']:.3g}; parameters within {errs['param_lr']:.3g} "
+        f"of the summed lr; last step "
+        f"{max(r['c2i']['step_s'][-1] for r in recs):.3f} s (slower rank) "
+        f"against one process's {ref['step_s'][-1]:.3f} s; K4 per rank "
+        f"{[r['c2i']['launches'] for r in recs]}")
+    gather = max(r["gather_ms"] for r in recs)
+    log(f"TP training's logits gather alone ([{TWO_RANK_BATCH}, {TOKENS}, "
+        f"{16384 // TP}] f32 a rank into the whole vocabulary, "
+        f"all_gather_into_tensor over gloo between the ranks sharing the "
+        f"card): {gather:.3f} ms = "
+        f"{gather / 10 / max(r['c2i']['step_s'][-1] for r in recs):.1f} % "
+        f"of the last TP step")
+    want = {"train_attention_fwd": 2 * L * DIST_STEPS,
+            "train_attention_dq": L * DIST_STEPS,
+            "train_attention_dkdv": L * DIST_STEPS}
+    for r in recs:
+        for part in ("c2i", "cli"):
+            if r[part]["launches"] != want:
+                raise AssertionError(f"TP {part} rank {r['rank']}: K4 "
+                                     f"{r[part]['launches']}, want {want}")
+    for k, b in TWO_RANK_BOUNDS.items():
+        if errs[k] > b:
+            raise AssertionError(f"TP training: {k} {errs[k]:.3g} > {b}")
+    log(f"TP training CLI (--tp 2, bf16, full remat, {DIST_STEPS} steps): "
+        f"{max(r['cli']['s'] for r in recs):.1f} s, steps "
+        f"{[r['cli']['step'] for r in recs]}, K4 per rank "
+        f"{[r['cli']['launches'] for r in recs]}; load_gpt(whole-model "
+        f"export): {n / 1e6:.1f}M parameters, finite {finite}")
+    if not finite or [r["cli"]["step"] for r in recs] != [DIST_STEPS] * 2:
+        raise AssertionError("the TP CLI run or its export")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        recs4 = launch_ranks(4, "tp_four", {"dir": tmp, "backend": "gloo"})
+        log(f"(1, 2, 2) launch: {time.time() - t0:.1f} s")
+    errs4 = {"loss": max(abs(r["c2i"]["loss"][0] / ref["loss"][0] - 1)
+                         for r in recs4),
+             "grad_norm": max(abs(r["c2i"]["grad_norm"][0]
+                                  / ref["grad_norm"][0] - 1) for r in recs4)}
+    log(f"FSDP2 x TP (1, 2, 2), four gloo ranks, one step: loss "
+        f"{recs4[0]['c2i']['loss'][0]:.6f} against {ref['loss'][0]:.6f}, "
+        f"relative differences {errs4}; K4 per rank "
+        f"{[r['c2i']['launches'] for r in recs4]}")
+    want4 = {"train_attention_fwd": 2 * L, "train_attention_dq": L,
+             "train_attention_dkdv": L}
+    if any(errs4[k] > TWO_RANK_BOUNDS[k] for k in errs4) \
+            or any(r["c2i"]["launches"] != want4 for r in recs4):
+        raise AssertionError(f"(1, 2, 2): {errs4}")
+    return {"errs": errs, "errs4": errs4, "gather_ms": gather,
+            "launches": recs[0]["cli"]["launches"]}
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; "
@@ -3947,6 +4536,12 @@ def main():
                         lambda d: run_t2i_fid(d, tmp, fid["ref"]))
         phase("baseline tokenizers: sd-vae, taming, cd",
               lambda d: run_baselines(d, tmp))
+    tp_err, tp_t = phase("TP kernels at the ranks' shapes", check_tp_kernels)
+    _free()  # the ranks' processes share the card
+    tp_serve = phase("TP serving, two gloo ranks on the card",
+                     run_tp_serving)
+    tp_train = phase("TP training, two and four gloo ranks on the card",
+                     run_tp_train)
     log(f"phase seconds: {phases}")
 
     def entry(name, source, replaces, launches_, err, t):
@@ -4041,6 +4636,39 @@ def main():
               "decode_attention.cu", "llamagen_tpu/ops/attention.py:569",
               t2i_fid["launches"], k1_err,
               k1_t[f"bf16 B{2 * len(FID_PROMPTS)} t2i fid"]),
+        # the TP slice: each kernel at a rank's shapes (rank 0's counts)
+        entry(f"decode_attention [TP rank: {TP_MODEL} tp {TP}, int8 cache, "
+              f"B {2 * TP_PAIRS}, 12 heads]", "decode_attention.cu",
+              "llamagen_tpu/ops/attention.py:569",
+              tp_serve["w8a16"]["launches"]["decode_attention"],
+              tp_err["K1"], tp_t["int8 tp"]),
+        entry(f"int8_matmul [TP rank: {TP_MODEL} tp {TP} wqkv shard "
+              f"[1536, 2304], B 16]", "int8_matmul.cu",
+              "llamagen_tpu/ops/quant_matmul.py:62",
+              tp_serve["w8a16"]["launches"]["int8_matmul"], tp_err["K2"],
+              tp_t["XXL/2 wqkv tp"]),
+        entry(f"w4_matmul [TP rank: {TP_MODEL} tp {TP} per-shard wqkv g128, "
+              f"B 16]", "w4_matmul.cu", "llamagen_tpu/ops/w4_matmul.py:315",
+              tp_serve["w4"]["launches"]["w4_matmul"], tp_err["K3"],
+              tp_t[("XXL/2 wqkv", 16)]),
+        entry(f"decode_attention [TP t2i engine: GPT-XL tp {TP}, int8 cache,"
+              f" B {2 * TP_T2I_PAIRS}, 10 heads, prefix_pad]",
+              "decode_attention.cu", "llamagen_tpu/ops/attention.py:569",
+              tp_serve["t2i"]["launches"]["decode_attention"], tp_err["K1"],
+              tp_t[f"int8 B{2 * TP_T2I_PAIRS} tp t2i"]),
+        entry(f"int8_matmul [TP t2i admission: GPT-XL tp {TP} wqkv "
+              f"shard, {TP_ADMIT_ROWS} rows]", "int8_matmul.cu",
+              "llamagen_tpu/ops/quant_matmul.py:62",
+              tp_serve["t2i"]["admission_k2"], tp_err["K2"],
+              tp_t[f"XL/2 wqkv B{TP_ADMIT_ROWS} tp"]),
+        *(entry(f"{name} [TP rank: GPT-L tp {TP} training, B "
+                f"{TWO_RANK_BATCH}, S {TOKENS}, 8 heads]", k4,
+                f"llamagen_tpu/ops/train_attention.py:{line}",
+                tp_train["launches"][name], tp_err["K4"][key],
+                tp_t["K4"]["record"][key])
+          for name, key, line in (("train_attention_fwd", "fwd", 195),
+                                  ("train_attention_dq", "dq", 213),
+                                  ("train_attention_dkdv", "dkdv", 213))),
     ]}
     print(smi)
     print(json.dumps(record))

@@ -32,29 +32,36 @@ def get_device(name: str) -> torch.device:
 
 
 def add_parallel_args(p, dp: int = 1, fsdp: Optional[int] = -1) -> None:
-    """--dp / --fsdp / --tp (JAX's mesh flags; -1 absorbs the world);
-    `fsdp` None leaves --fsdp out (the VQ-GAN CLI)."""
+    """--dp / --fsdp / --tp (JAX's mesh flags; -1 absorbs the world) and
+    --backend; `fsdp` None leaves --fsdp and --tp out (the VQ-GAN CLI)."""
     p.add_argument("--dp", type=int, default=dp,
                    help="data-parallel (DDP) ranks; -1: the rest")
     if fsdp is not None:
         p.add_argument("--fsdp", type=int, default=fsdp,
                        help="fully sharded (FSDP2) ranks; -1: the rest")
         p.add_argument("--tp", type=int, default=1,
-                       help="tensor parallel: only 1 (ROADMAP item 9)")
+                       help="tensor-parallel ranks (heads, FFN hidden and "
+                            "vocabulary sharded; adjacent ranks)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (default: "
+                        "nccl on cuda, gloo on cpu; gloo lets ranks share "
+                        "one card)")
 
 
 @contextlib.contextmanager
 def process_group(args, device: torch.device
                   ) -> Iterator[Tuple[torch.device, Optional[DeviceMesh]]]:
-    """(this rank's device, the ("dp", "fsdp") mesh) of a training CLI.
+    """(this rank's device, the ("dp", "fsdp", "tp") mesh) of a training
+    CLI.
 
-    Under torchrun (or a multi-task SLURM job) the process group is made,
-    even at one rank, and torn down at exit if this call made it; a plain
-    run is one process with no mesh, and a mesh other than 1 x 1 raises
-    `ValueError` there. `--tp` above 1 raises `NotImplementedError`."""
+    Under torchrun (or a multi-task SLURM job) the process group is made
+    (`--backend`, else NCCL on CUDA), even at one rank, and torn down at
+    exit if this call made it; a plain run is one process with no mesh,
+    and a mesh other than 1 x 1 x 1 raises `ValueError` there."""
     dp, fsdp, tp = args.dp, getattr(args, "fsdp", 1), getattr(args, "tp", 1)
     owned = not dist.is_initialized()
-    if not distributed.init_distributed(device.type):
+    if not distributed.init_distributed(device.type,
+                                        getattr(args, "backend", None)):
         mesh_lib.mesh_shape(dp, fsdp, tp, 1)
         yield device, None
         return

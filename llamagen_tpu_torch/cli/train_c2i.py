@@ -7,11 +7,14 @@ checkpoints; resume.
 
 Across GPUs, under torchrun: `--fsdp` ranks shard the model (FSDP2; the
 default `--fsdp -1` takes every rank), `--dp` ranks replicate it (DDP),
-both at once give HSDP (`parallel/`). Each rank takes its stride of the
-global batch, logs and metrics come from rank 0, and checkpoints are
-sharded DCP directories, the final one beside a whole-model
-`step_XXXXXXXX_model.pt` that the sampling CLIs load. `--tp` above 1
-raises `NotImplementedError` (ROADMAP item 9).
+both at once give HSDP, and `--tp` ranks split its heads, FFN hidden dim
+and vocabulary (Megatron's tensor parallelism, adjacent ranks; composes
+with the other two) (`parallel/`). Each data-parallel rank takes its
+stride of the global batch (the ranks of a TP group the same rows), logs
+and metrics come from rank 0, and checkpoints are sharded DCP
+directories, the final one beside a whole-model `step_XXXXXXXX_model.pt`
+(upstream's layout, TP shards gathered) that the sampling CLIs load.
+`--backend gloo` lets ranks share one card.
 
   python -m llamagen_tpu_torch.cli.train_c2i --code-path /data/codes \
       --gpt-model GPT-L --image-size 384 --global-batch-size 32
@@ -22,6 +25,7 @@ raises `NotImplementedError` (ROADMAP item 9).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -35,9 +39,10 @@ from llamagen_tpu_torch.config import gpt_config
 from llamagen_tpu_torch.data.codes import (NpyCodeDataset, PackedCodeDataset,
                                            SyntheticCodeDataset, pack_shards)
 from llamagen_tpu_torch.parallel import distributed
-from llamagen_tpu_torch.parallel.mesh import local_batch_size, rank_rows
+from llamagen_tpu_torch.parallel.mesh import (data_rank_world,
+                                              local_batch_size, rank_rows)
 from llamagen_tpu_torch.train import c2i
-from llamagen_tpu_torch.utils import checkpoint
+from llamagen_tpu_torch.utils import checkpoint, profiling
 from llamagen_tpu_torch.utils.logger import (create_experiment_dir,
                                              create_logger)
 from llamagen_tpu_torch.utils.metrics import MetricsLogger
@@ -46,12 +51,6 @@ from llamagen_tpu_torch.utils.metrics import MetricsLogger
 def _has(path, suffixes) -> bool:
     return bool(path) and os.path.isdir(path) and any(
         f.endswith(suffixes) for f in os.listdir(path))
-
-
-def _save_trace(prof, profile_dir: str) -> None:
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 def main(argv=None):
@@ -109,7 +108,9 @@ def main(argv=None):
 
 
 def train(args, device, mesh):
-    rank, world = distributed.rank(), distributed.world_size()
+    # the data-parallel rank and world: the ranks of a TP group share rows
+    rank, world = data_rank_world(mesh)
+    is_main = distributed.is_main_process()
     latent = args.image_size // args.downsample_size
     # drop-path replaces resid/ffn dropout (ref train_c2i.py:97-100)
     dropout_p = 0.0 if args.drop_path_rate > 0.0 else args.dropout_p
@@ -128,7 +129,7 @@ def train(args, device, mesh):
     logger.info(f"device {device}; mesh {mesh}; model {args.gpt_model} "
                 f"({latent}x{latent} tokens)")
     mlog = MetricsLogger(args.results_dir, use_wandb=args.wandb,
-                         config=vars(args), is_main=rank == 0)
+                         config=vars(args), is_main=is_main)
 
     state, step_fn = c2i.build_trainer(
         cfg, device, lr=args.lr, weight_decay=args.weight_decay,
@@ -170,7 +171,7 @@ def train(args, device, mesh):
         packed = args.code_path.rstrip("/") + "_packed"
         src = NpyCodeDataset(args.code_path,
                              args.label_path or args.code_path)
-        if rank == 0 and not _has(packed, ".codes.npy"):
+        if is_main and not _has(packed, ".codes.npy"):
             logger.info(f"repacking {len(src)} npy micro-files -> {packed}")
             pack_shards(src, packed)
         distributed.barrier()
@@ -189,32 +190,26 @@ def train(args, device, mesh):
     t0, last_log = time.time(), start_step
     running_loss = 0.0
     step = start_step
-    prof = None
     ckpt_dir = os.path.join(args.results_dir, "checkpoints")
+    profile = contextlib.ExitStack()  # steps 2..4 under `profiling.trace`
     for codes, labels in it:
         if max_steps > 0 and step >= max_steps:
             break
         batch = c2i.Batch(
             labels=torch.from_numpy(np.asarray(labels, np.int64)).to(device),
             tokens=torch.from_numpy(np.asarray(codes, np.int64)).to(device))
-        if args.profile_dir and rank == 0 and step == start_step + 2 \
-                and prof is None:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                *([torch.profiler.ProfilerActivity.CUDA]
-                  if device.type == "cuda" else [])])
-            prof.start()
+        if args.profile_dir and is_main and step == start_step + 2:
+            profile.enter_context(profiling.trace(args.profile_dir))
             logger.info(f"profiler trace -> {args.profile_dir}")
-        state, metrics = step_fn(state, batch, args.seed)
+        if args.memory_analysis and step == start_step:
+            (state, metrics), report = profiling.memory_report(
+                step_fn, state, batch, args.seed)
+            logger.info(f"first step: {profiling.format_memory(report)}")
+        else:
+            state, metrics = step_fn(state, batch, args.seed)
         step += 1
-        if prof is not None and step == start_step + 5:
-            _save_trace(prof, args.profile_dir)
-            prof = False
-        if args.memory_analysis and step == start_step + 1 \
-                and device.type == "cuda":
-            logger.info(f"peak device memory after the first step: "
-                        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
-                        f" GiB")
+        if step == start_step + 5:
+            profile.close()
         running_loss += float(metrics["loss"])  # waits for the step
         if step % args.log_every == 0:
             dt = time.time() - t0
@@ -231,8 +226,7 @@ def train(args, device, mesh):
             path = checkpoint.save_step(ckpt_dir, step, state)
             logger.info(f"saved checkpoint {path}")
 
-    if prof:  # the run ended inside the profiled steps
-        _save_trace(prof, args.profile_dir)
+    profile.close()  # the run ended inside the profiled steps
     path = checkpoint.save_step(ckpt_dir, step, state)
     if mesh is not None:
         checkpoint.save_full_model(

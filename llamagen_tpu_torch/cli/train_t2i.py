@@ -6,10 +6,11 @@ Trains on images + precomputed T5 caption features (a jsonl dataset,
 step (`train/t2i.py`), with per-sample caption masks and the `valid`
 bad-sample loss mask. Same flags and defaults as the JAX CLI, plus
 `--device`; `metrics.jsonl`, periodic and final
-checkpoints, resume. Across GPUs under torchrun, `--dp` / `--fsdp` as in
-`cli/train_c2i.py` (DDP, FSDP2, HSDP; sharded DCP checkpoints and a
-whole-model export); the frozen VQ is whole on every rank and encodes
-that rank's images. `--tp` above 1 raises `NotImplementedError`.
+checkpoints, resume. Across GPUs under torchrun, `--dp` / `--fsdp` /
+`--tp` as in `cli/train_c2i.py` (DDP, FSDP2, HSDP, tensor parallelism;
+sharded DCP checkpoints and a whole-model export); the frozen VQ and the
+caption embedder are whole on every rank, and the VQ encodes that rank's
+images (the ranks of a TP group encode the same rows).
 
   python -m llamagen_tpu_torch.cli.train_t2i --jsonl data/items.jsonl \\
       --t5-feature-dir data/t5 --vq-ckpt vq_ds16_t2i.pt \\
@@ -34,7 +35,8 @@ from llamagen_tpu_torch.cli.common import (add_parallel_args, get_device,
 from llamagen_tpu_torch.config import gpt_config
 from llamagen_tpu_torch.data.t2i import T2IDataset
 from llamagen_tpu_torch.parallel import distributed
-from llamagen_tpu_torch.parallel.mesh import local_batch_size, rank_rows
+from llamagen_tpu_torch.parallel.mesh import (data_rank_world,
+                                              local_batch_size, rank_rows)
 from llamagen_tpu_torch.train import t2i
 from llamagen_tpu_torch.utils import checkpoint
 from llamagen_tpu_torch.utils.logger import (create_experiment_dir,
@@ -109,7 +111,8 @@ def main(argv=None):
 
 
 def train(args, device, mesh):
-    rank, world = distributed.rank(), distributed.world_size()
+    # the data-parallel rank and world: the ranks of a TP group share rows
+    rank, world = data_rank_world(mesh)
     latent = args.image_size // args.downsample_size
     if args.synthetic_steps > 0:
         # shrink the caption window so that the smoke run stays fast
@@ -135,7 +138,8 @@ def train(args, device, mesh):
     logger.info(f"device {device}; mesh {mesh}; model {args.gpt_model} "
                 f"t2i ({latent}x{latent} tokens, T={cfg.cls_token_num})")
     mlog = MetricsLogger(args.results_dir, use_wandb=args.wandb,
-                         config=vars(args), is_main=rank == 0)
+                         config=vars(args),
+                         is_main=distributed.is_main_process())
 
     state, step_fn = t2i.build_trainer(
         cfg, vq_model, device, lr=args.lr, weight_decay=args.weight_decay,

@@ -19,6 +19,15 @@ Its attention runs the training-attention kernel (`ops/train_attention.py`)
 unless attention-probability dropout is on; dropout masks come from
 per-layer seeds drawn before the layer loop, so a layer recomputed under
 `torch.utils.checkpoint` draws the same masks.
+
+Tensor parallelism (JAX's `tp_axis`): a model made a TP shard by
+`parallel/tp_decode.py::shard_tp_params` holds its rank's heads and FFN
+columns (`Attention.n_head`, `n_kv_head`) and its TP process group
+(`Transformer.tp_group`); every forward here then runs on the local
+heads, sums wo's and w2's partial outputs over the group in the compute
+dtype and gathers the logits along the vocabulary. Training adds the
+conjugate backward (`parallel/collectives.py`: `copy_to_tp` before wqkv,
+w1, w3 and the head).
 """
 
 from __future__ import annotations
@@ -42,6 +51,9 @@ from llamagen_tpu_torch.ops.quant_matmul import matmul_any, quantize_weight
 from llamagen_tpu_torch.ops.train_attention import (TRAIN_ATTENTION_OP,
                                                     causal_attention_padded)
 from llamagen_tpu_torch.ops.w4_matmul import SEG_ROWS, pack_w4
+from llamagen_tpu_torch.parallel.collectives import (copy_to_tp,
+                                                     gather_from_tp,
+                                                     reduce_from_tp)
 
 
 # ---------------------------------------------------------------------------
@@ -154,11 +166,16 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    """wqkv and wo; `n_head` / `n_kv_head` are the heads this module holds
+    (a TP shard's local ones) and `tp_group` the group of its shards."""
+
     def __init__(self, cfg: GPTConfig, **kw):
         super().__init__()
         qkv_out = (cfg.n_head + 2 * cfg.kv_heads) * cfg.head_dim
         self.wqkv = Linear(cfg.dim, qkv_out, **kw)
         self.wo = Linear(cfg.dim, cfg.dim, **kw)
+        self.n_head, self.n_kv_head = cfg.n_head, cfg.kv_heads
+        self.tp_group: Optional[dist.ProcessGroup] = None
 
 
 class FeedForward(nn.Module):
@@ -167,9 +184,12 @@ class FeedForward(nn.Module):
         self.w1 = Linear(cfg.dim, cfg.ffn_hidden_dim, **kw)
         self.w3 = Linear(cfg.dim, cfg.ffn_hidden_dim, **kw)
         self.w2 = Linear(cfg.ffn_hidden_dim, cfg.dim, **kw)
+        self.tp_group: Optional[dist.ProcessGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        x = copy_to_tp(x, self.tp_group)
+        return reduce_from_tp(self.w2(F.silu(self.w1(x)) * self.w3(x)),
+                              self.tp_group)
 
 
 class TransformerBlock(nn.Module):
@@ -223,7 +243,8 @@ class CaptionEmbedder(nn.Module):
 
 class Transformer(nn.Module):
     """GPT (inference and the training forward) for c2i (class labels) or
-    t2i (caption features). `cfg` is the port's `GPTConfig`."""
+    t2i (caption features). `cfg` is the port's `GPTConfig`. A TP shard
+    (`tp_size` > 1) is rank `tp_rank`'s of the group `tp_group`."""
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -244,6 +265,17 @@ class Transformer(nn.Module):
         self.register_buffer("freqs_cis",
                              torch.tensor(freqs, device=device),
                              persistent=False)
+        self.tp_size, self.tp_rank = 1, 0
+        self.tp_group: Optional[dist.ProcessGroup] = None
+        self.tp_packed: Optional[int] = None  # per-shard W4, not yet sharded
+
+    @property
+    def n_local_heads(self) -> int:
+        return self.layers[0].attention.n_head
+
+    @property
+    def n_local_kv_heads(self) -> int:
+        return self.layers[0].attention.n_kv_head
 
     def embed_condition(self, cond: torch.Tensor,
                         generator: Optional[torch.Generator] = None
@@ -326,12 +358,14 @@ class KVCache:
 
 def init_cache(cfg: GPTConfig, batch: int, max_seq_len: int,
                dtype: torch.dtype, device,
-               compute_dtype: torch.dtype = torch.bfloat16) -> KVCache:
+               compute_dtype: torch.dtype = torch.bfloat16,
+               kv_heads: Optional[int] = None) -> KVCache:
     """Zeroed bf16/f32 cache, or an empty int8 cache (`dtype` torch.int8):
     zero rows, bf16 scales of 1.0 and a zero tail in `compute_dtype`, as
     JAX `init_cache` + `init_recent` start the serving engine's cache. An
-    int8 cache after a prefill comes from `quantize_cache`."""
-    f2 = 2 * cfg.kv_heads * cfg.head_dim
+    int8 cache after a prefill comes from `quantize_cache`. `kv_heads`: a
+    TP shard's local kv heads (default: the config's)."""
+    f2 = 2 * (kv_heads or cfg.kv_heads) * cfg.head_dim
 
     def per_layer(shape, dt, fill=0.0):
         return [torch.full(shape, fill, dtype=dt, device=device)
@@ -351,10 +385,10 @@ def quantize_cache(cache: KVCache, cfg: GPTConfig,
     per-row k/v scales stored bf16, padded rows with scale 1.0 (as
     `gpt.quantize_cache` in JAX). The tail is left unset: the caller seeds
     it from the exact rows."""
-    f = cfg.kv_heads * cfg.head_dim
     kv, scales = [], []
     for ckv in cache.kv:
-        b, src_len, _ = ckv.shape
+        b, src_len, f2 = ckv.shape
+        f = f2 // 2  # a TP shard's cache: its own heads
         kq, ks = quantize_rows(ckv[..., :f])
         vq, vs = quantize_rows(ckv[..., f:])
         q8 = torch.zeros(b, max_seq_len, 2 * f, dtype=torch.int8,
@@ -376,13 +410,28 @@ def quantize_cache(cache: KVCache, cfg: GPTConfig,
 Attend = Callable[[int, torch.Tensor], torch.Tensor]
 
 
+def tp_group_of(model: Transformer) -> Optional[dist.ProcessGroup]:
+    """The model's TP group (None for a whole model); a TP shard without
+    one raises: its partial sums would be taken for the whole."""
+    if model.tp_size > 1 and model.tp_group is None:
+        raise ValueError(f"a TP shard (rank {model.tp_rank} of "
+                         f"{model.tp_size}) runs only with its process "
+                         f"group: shard_tp_params(..., group=)")
+    return model.tp_group
+
+
 def decode_stack(model: Transformer, h: torch.Tensor, attend: Attend,
-                 flatten: bool = True, last_only: bool = False
-                 ) -> torch.Tensor:
+                 flatten: bool = True, last_only: bool = False,
+                 group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """The layer loop + final norm + output head. h [..., D];
     attend(l, qkv) -> [..., F] owns rope, the cache update and attention.
     Returns f32 logits [..., V], or with `last_only` (prefill) the head of
     the last position only, [B, V] for h [B, T, D] (JAX `prefill`).
+
+    group: the TP group of a TP shard (JAX's `tp_axis`): wo's and w2's
+    partial outputs are summed over it in the compute dtype, then cast to
+    h's dtype, and the f32 logits are gathered along the vocabulary in
+    rank order (JAX gpt.py:604-620).
 
     flatten: run every matmul on x flattened to rank 2, as JAX's
     `decode_stack` does (gpt.py:598-602), so W4 weights take the W4 kernel
@@ -397,16 +446,22 @@ def decode_stack(model: Transformer, h: torch.Tensor, attend: Attend,
         out = lin(x.reshape(-1, x.shape[-1]))
         return out.reshape(*lead, out.shape[-1])
 
+    def red(x: torch.Tensor) -> torch.Tensor:
+        return reduce_from_tp(x, group)
+
     for l, layer in enumerate(model.layers):
         x = layer.attention_norm(h)
         attn = attend(l, mm(layer.attention.wqkv, x))
-        h = h + mm(layer.attention.wo, attn.to(x.dtype)).to(h.dtype)
+        h = h + red(mm(layer.attention.wo, attn.to(x.dtype))).to(h.dtype)
         ff = layer.feed_forward
         x = layer.ffn_norm(h)
-        h = h + mm(ff.w2, F.silu(mm(ff.w1, x)) * mm(ff.w3, x)).to(h.dtype)
+        h = h + red(mm(ff.w2, F.silu(mm(ff.w1, x)) * mm(ff.w3, x))) \
+            .to(h.dtype)
     if last_only:  # rank 3, as JAX's `_logits(h[:, -1:])`
-        return model.output(model.norm(h[:, -1:])).float()[:, 0]
-    return mm(model.output, model.norm(h)).float()
+        logits = model.output(model.norm(h[:, -1:])).float()[:, 0]
+    else:
+        logits = mm(model.output, model.norm(h)).float()
+    return gather_from_tp(logits, group)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -452,6 +507,7 @@ def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
     if cache.quantized:
         raise ValueError("prefill into an exact cache, then quantize_cache")
     cfg = model.cfg
+    group = tp_group_of(model)
     t = cfg.cls_token_num
     h = model.embed_condition(cond).to(compute_dtype)
     freqs = model.freqs_cis[:t]
@@ -459,21 +515,23 @@ def prefill(model: Transformer, cond: torch.Tensor, cache: KVCache,
     if prefix_mask is not None:
         eye = torch.eye(t, dtype=torch.bool, device=h.device)
         causal = causal & (prefix_mask.bool()[:, None, None, :] | eye)
-    f_kv = cfg.kv_heads * cfg.head_dim
+    hn, kvh = model.n_local_heads, model.n_local_kv_heads
+    f_kv = kvh * cfg.head_dim
 
     def attend(l, qkv):
         b = qkv.shape[0]
-        q, k, v = split_heads(qkv, cfg.n_head, cfg.kv_heads, cfg.head_dim)
+        q, k, v = split_heads(qkv, hn, kvh, cfg.head_dim)
         q, k = rope_heads(q, freqs), rope_heads(k, freqs)
         ckv = cache.kv[l]
         ckv[:, :t] = torch.cat([k.reshape(b, t, f_kv), v], dim=-1) \
             .to(ckv.dtype)
         # attend to what the cache holds, as JAX does
-        kk = ckv[:, :t, :f_kv].reshape(b, t, cfg.kv_heads, cfg.head_dim)
-        vv = ckv[:, :t, f_kv:].reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        kk = ckv[:, :t, :f_kv].reshape(b, t, kvh, cfg.head_dim)
+        vv = ckv[:, :t, f_kv:].reshape(b, t, kvh, cfg.head_dim)
         return _sdpa(q, kk.to(q.dtype), vv.to(q.dtype), causal)
 
-    return decode_stack(model, h, attend, flatten=False, last_only=True)
+    return decode_stack(model, h, attend, flatten=False, last_only=True,
+                        group=group)
 
 
 @torch.no_grad()
@@ -488,24 +546,28 @@ def decode_step_slots(model: Transformer, emb: torch.Tensor,
     decode-attention kernel runs in every layer and updates the cache in
     place. The caller keeps every pos inside the cache: a position tensor
     is not read back to the host. prefix_pad: optional int32 [B], positions
-    below it are masked. Returns f32 logits [B, V]."""
+    below it are masked. A TP shard runs its local heads (the cache is its
+    own, `[B, S, 2 * F_kv / tp]`) and its group's collectives. Returns f32
+    logits [B, V]."""
     cfg = model.cfg
+    group = tp_group_of(model)
     b = emb.shape[0]
     h = emb.to(compute_dtype)
     freqs = model.freqs_cis[pos]  # [B, D//2, 2]
-    f, f_kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    hn, kvh = model.n_local_heads, model.n_local_kv_heads
+    f, f_kv = hn * cfg.head_dim, kvh * cfg.head_dim
 
     def attend(l, qkv):
-        q, k, v = split_heads(qkv, cfg.n_head, cfg.kv_heads, cfg.head_dim)
+        q, k, v = split_heads(qkv, hn, kvh, cfg.head_dim)
         q = rope_heads(q, freqs).reshape(b, f)
         k = rope_heads(k, freqs).reshape(b, f_kv)
         return decode_attention(
-            q, torch.cat([k, v], dim=-1), cache.kv[l], pos, cfg.n_head,
+            q, torch.cat([k, v], dim=-1), cache.kv[l], pos, hn,
             prefix_pad=prefix_pad,
             kv_scale=cache.kv_scale[l] if cache.quantized else None,
             tail=cache.tail[l] if cache.quantized else None)
 
-    return decode_stack(model, h, attend)
+    return decode_stack(model, h, attend, group=group)
 
 
 @torch.no_grad()
@@ -573,35 +635,47 @@ def _layer_generator(seed: Optional[int],
 def _train_attention(attn: Attention, x: torch.Tensor, freqs: torch.Tensor,
                      cfg: GPTConfig,
                      generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Full-sequence causal attention + wo. The training-attention kernel
-    unless attention-probability dropout is on (JAX gpt.py:284-307)."""
+    """Full-sequence causal attention + wo on the module's heads (a TP
+    shard's local ones, wo's partial outputs summed over its group). The
+    training-attention kernel unless attention-probability dropout is on
+    (JAX gpt.py:284-307)."""
     b, s, _ = x.shape
-    q, k, v = split_heads(attn.wqkv(x), cfg.n_head, cfg.kv_heads,
+    hn, kvh = attn.n_head, attn.n_kv_head
+    q, k, v = split_heads(attn.wqkv(copy_to_tp(x, attn.tp_group)), hn, kvh,
                           cfg.head_dim)
-    v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)  # a view: row stride 3F
+    v = v.reshape(b, s, kvh, cfg.head_dim)  # a view: row stride 3F
     q, k = rope_heads(q, freqs), rope_heads(k, freqs)
     if generator is not None and cfg.attn_dropout_p > 0:
         causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
         out = _sdpa(q, k, v, causal, bf16_scores=True,
                     dropout_p=cfg.attn_dropout_p, generator=generator)
     else:
-        rep = cfg.n_head // cfg.kv_heads
+        rep = hn // kvh
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         out = causal_attention_padded(q, k, v, cfg.head_dim ** -0.5) \
             .reshape(b, s, -1)
-    return attn.wo(out)
+    return reduce_from_tp(attn.wo(out), attn.tp_group)
 
 
 def _train_block(layer: TransformerBlock, h: torch.Tensor,
                  freqs: torch.Tensor, cfg: GPTConfig, seed: Optional[int],
                  drop_path_rate: Optional[float]) -> torch.Tensor:
     """One layer (JAX `_block`): attention and SwiGLU with resid/ffn
-    dropout and drop-path drawn from the layer's own seed."""
+    dropout and drop-path drawn from the layer's own seed. Those act on
+    activations every TP rank holds whole, so its ranks draw the same
+    masks; attention-probability dropout acts on the rank's own heads and
+    draws from the seed offset by the TP rank (Megatron's model-parallel
+    stream)."""
     gen = _layer_generator(seed, h.device)
+    attn_gen = gen
+    group = layer.attention.tp_group
+    if group is not None and seed is not None:
+        attn_gen = _layer_generator(
+            (seed + 1 + dist.get_rank(group)) % 2 ** 62, h.device)
     attn = _train_attention(layer.attention, layer.attention_norm(h), freqs,
-                            cfg, gen)
+                            cfg, attn_gen)
     if gen is not None:
         if cfg.resid_dropout_p > 0:
             attn = _dropout(attn, cfg.resid_dropout_p, gen)
@@ -689,11 +763,13 @@ def forward_train(model: Transformer, cond: torch.Tensor, idx: torch.Tensor,
         rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.n_layer).tolist()
     pads = _leading_zero_rows(cond_emb, h.shape[1]) \
         if cfg.model_type == "t2i" else None
+    tp_group = tp_group_of(model)
     for layer, seed, rate in zip(model.layers, seeds[2:], rates):
         if pads is not None:
             h = torch.where(pads, h.detach(), h)
         h = layer(h, freqs, seed, rate, remat)
-    logits = model.output(model.norm(h)).float()
+    logits = gather_from_tp(model.output(copy_to_tp(model.norm(h), tp_group)),
+                            tp_group).float()
     # predictions for grid tokens start at the last condition position
     logits = logits[:, cfg.cls_token_num - 1:]
 

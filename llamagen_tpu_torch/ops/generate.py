@@ -71,15 +71,17 @@ def generate(model: gpt.Transformer, cond: torch.Tensor, *,
     batch_cfg = 2 * cond.shape[0] if use_cfg else cond.shape[0]
     max_seq = find_multiple(t + max_new_tokens, 128)
     quantize_kv = cache_dtype == torch.int8
+    kvh = model.n_local_kv_heads  # a TP shard's cache holds its own heads
 
     cond_combined = build_cfg_batch(model, cond, use_cfg)
     if quantize_kv:
         # prefill into a small exact staging cache, then quantise it and
         # seed the tail from its exact rows
         cache = gpt.init_cache(cfg, batch_cfg, find_multiple(t + TAIL, 8),
-                               compute_dtype, dev)
+                               compute_dtype, dev, kv_heads=kvh)
     else:
-        cache = gpt.init_cache(cfg, batch_cfg, max_seq, cache_dtype, dev)
+        cache = gpt.init_cache(cfg, batch_cfg, max_seq, cache_dtype, dev,
+                               kv_heads=kvh)
     prefix_mask, prefix_pad = caption_masks(emb_masks, t, use_cfg)
     logits = gpt.prefill(model, cond_combined, cache, compute_dtype,
                          prefix_mask=prefix_mask)

@@ -26,8 +26,20 @@ kernel (`ops/attention.py`) takes the `[2P]` positions in every layer; with
 W8A16 weights the layer matmuls run on the int8 kernel at 2P rows (and, at
 a t2i admission, at 2A * 120 rows).
 
-Not ported yet: tensor-parallel serving (the `tp` argument and JAX's
-pair-granular `make_admit_pair`; ROADMAP.md Queue 1 item 9).
+Tensor-parallel serving (`tp` > 1, JAX's `serve/tp_engine.py`): the
+model is a rank's TP shard (`parallel/tp_decode.py::shard_tp_params`),
+which carries its heads and its process group, so this engine runs it
+unchanged: each rank's cache holds its own heads (`[2P, S, 2 * F_kv /
+tp]`), the step runs the local heads through K1 with two all-reduces per
+layer and one gather of the logits, and a t2i admission prefills its
+pairs batched, as on one card (JAX admits one pair per prefill under TP,
+for its TPU cache layout, which the port does not have). Every rank runs
+this same host loop (SPMD). The contract: every rank submits the same
+requests in the same order (and calls `run_until_idle` / `generate`
+alike), so every rank makes the same admissions and chunks. Sampling runs
+replicated: the gathered logits are bit-identical on every rank and the
+ranks' generators are seeded alike, so they sample the same tokens with
+no broadcast.
 """
 
 from __future__ import annotations
@@ -119,16 +131,18 @@ def init_engine_state(cfg: GPTConfig, num_pairs: int, max_new_tokens: int,
                       cache_dtype: torch.dtype = torch.bfloat16,
                       compute_dtype: torch.dtype = torch.bfloat16,
                       track_counts: bool = False,
-                      sp: Optional[SamplingParams] = None) -> EngineState:
+                      sp: Optional[SamplingParams] = None,
+                      kv_heads: Optional[int] = None) -> EngineState:
     """Idle slots over a cache of find_multiple(cls + max_new, 128) rows:
     a finished slot keeps stepping at pos max_new, so every slot's position
     stays inside it. An int8 cache starts empty (zero rows, scales 1.0,
-    zero tail), as the JAX engine's does."""
+    zero tail), as the JAX engine's does. `kv_heads`: a TP shard's local
+    kv heads (the cache's width)."""
     smax = find_multiple(cfg.cls_token_num + max_new_tokens, 128)
     zeros = lambda dt: torch.zeros(num_pairs, dtype=dt, device=device)
     return EngineState(
         cache=gpt.init_cache(cfg, 2 * num_pairs, smax, cache_dtype, device,
-                             compute_dtype=compute_dtype),
+                             compute_dtype=compute_dtype, kv_heads=kv_heads),
         pos=zeros(torch.int32), active=zeros(torch.bool),
         cur_token=zeros(torch.long), labels=zeros(torch.long),
         n_generated=zeros(torch.int32),
@@ -266,7 +280,7 @@ def prefill_pairs(model: gpt.Transformer, cond: torch.Tensor,
         m2 = torch.cat([m, m])
         pads = (t - m.sum(dim=1)).to(torch.int32)
     stage = gpt.init_cache(cfg, 2 * a, find_multiple(t, 8), compute_dtype,
-                           cond.device)
+                           cond.device, kv_heads=model.n_local_kv_heads)
     logits = gpt.prefill(model, build_cfg_batch(model, cond, True), stage,
                          compute_dtype, prefix_mask=m2)
     rows = [torch.stack([ckv[:a, :t], ckv[a:, :t]], dim=1)
@@ -309,10 +323,11 @@ def scatter_pairs(state: EngineState, cfg: GPTConfig, slots: torch.Tensor,
     quantised by `quantize_rows` (as `generate`'s `quantize_cache`), and
     rows [base, T) go exact into the tail. Each slot then stands at pos T
     with its first token written, n_generated 1, its left pad (t2i) and
-    its sampling parameters; its penalty counts hold the first token."""
+    its sampling parameters; its penalty counts hold the first token. The
+    k half's width comes from the cache (a TP rank's is its own)."""
     p = state.pos.shape[0]
     t = cfg.cls_token_num
-    f = cfg.kv_heads * cfg.head_dim
+    f = state.cache.kv[0].shape[-1] // 2
     idx = torch.cat([slots, slots + p])
     cache = state.cache
     base = t // TAIL * TAIL if cache.quantized else t
@@ -548,7 +563,13 @@ class EngineBase:
 class ServeEngine(EngineBase):
     """Host-side request loop over the chunked step: `submit` + `run_until_
     idle` for online serving, `generate` for an offline batch. The model's
-    device is the engine's device."""
+    device is the engine's device.
+
+    tp > 1 (JAX's `mesh` / `tp`): `model` is this rank's TP shard with its
+    process group (`shard_tp_params(model, rank, tp, group)`); without the
+    group, or for a model sharded another number of ways, it raises.
+    `mesh`, where given, must have that tp. Every rank submits the same
+    requests (module docstring)."""
 
     def __init__(self, model: gpt.Transformer, *, num_pairs: int = 16,
                  max_new_tokens: int = 576,
@@ -556,11 +577,16 @@ class ServeEngine(EngineBase):
                  chunk: int = 64, seed: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  cache_dtype: Optional[torch.dtype] = None,
-                 track_penalties: bool = False):
+                 track_penalties: bool = False, mesh=None, tp: int = 1):
         self._init_requests(model.cfg, model.freqs_cis.device, num_pairs,
                             max_new_tokens, sampling_params)
         cfg = self.cfg
         self.chunk = chunk
+        if tp != model.tp_size or (mesh is not None
+                                   and mesh["tp"].size() != tp):
+            raise ValueError(f"tp {tp}, a model sharded {model.tp_size} "
+                             f"ways, mesh {mesh}: shard_tp_params first")
+        gpt.tp_group_of(model)  # a TP shard without its group raises
         self.step_fn = make_engine_step(model, max_new_tokens, chunk,
                                         compute_dtype)
         self.state = init_engine_state(
@@ -569,7 +595,7 @@ class ServeEngine(EngineBase):
             self.device, cache_dtype=cache_dtype or compute_dtype,
             compute_dtype=compute_dtype,
             track_counts=self.sp.uses_penalties or track_penalties,
-            sp=self.sp)
+            sp=self.sp, kv_heads=model.n_local_kv_heads)
         self.cache_rows = self.state.cache.kv[0].shape[1]
         # host mirror of each slot's progress (it advances deterministically)
         # sizes the chunks, checks the cache bounds and gates the filters

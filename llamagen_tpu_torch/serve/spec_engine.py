@@ -258,11 +258,12 @@ class SpecEngine(EngineBase):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  force_accept: Optional[int] = None,
                  mesh=None, tp: int = 1):
-        if mesh is not None or tp != 1:
+        if mesh is not None or tp != 1 or target.tp_size != 1 \
+                or draft.tp_size != 1:
             raise NotImplementedError(
                 "SpecEngine runs on one device, as the JAX engine does: "
-                "tensor-parallel serving is ServeEngine's (ROADMAP.md, "
-                "Queue 1 item 9)")
+                "tensor-parallel serving is ServeEngine(model, tp=) on a "
+                "TP shard (parallel/tp_decode.py::shard_tp_params)")
         cfg, dcfg = target.cfg, draft.cfg
         if dcfg.vocab_size != cfg.vocab_size:
             raise ValueError("the draft and the target vocabularies must "

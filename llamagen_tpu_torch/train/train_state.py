@@ -12,6 +12,9 @@ weight_decay, mask=decay_mask))`.
   decay. Decay is decoupled and scaled by the learning rate, as in optax.
 - Gradients sharded by FSDP2 are `DTensor`s: the global norm sums over
   their shards and the clip scales each rank's shard (`global_norm`).
+  A TP shard's sharded parameters (`tp_decode.is_tp_sharded`) add their
+  squares over the TP group; the ones every TP rank holds whole (norms,
+  embeddings) count once.
 - With `warmup_steps > 0` the learning rate is `optax.linear_schedule(0,
   lr, warmup_steps)` of the number of earlier updates, so the first update
   has learning rate 0.
@@ -27,6 +30,8 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
+
+from llamagen_tpu_torch.parallel.tp_decode import is_tp_sharded
 
 
 def decay_mask(name: str) -> bool:
@@ -51,7 +56,10 @@ def _shard_groups(t: torch.Tensor):
                  if pl.is_shard() and mesh.size(d) > 1)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor],
+                tp_sharded: Optional[List[bool]] = None,
+                tp_group: Optional[dist.ProcessGroup] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every element (f32, on the device;
     the sums in f64, so that a norm over shards equals the one over the
     whole tensor: the CPU's f32 sum over a 16384 x 128 gradient is off by
@@ -60,7 +68,9 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     Sharded tensors (FSDP2 `DTensor`s) count every shard: each tensor's
     squared norm is summed over the ranks that shard it (one all-reduce),
     so every rank gets the one-process norm; plain tensors (one process,
-    DDP's all-reduced gradients) need no collective."""
+    DDP's all-reduced gradients) need no collective. With a `tp_group`,
+    the squares of the tensors `tp_sharded` marks are summed over it too
+    (the others are whole on every TP rank, and count once)."""
     norms = [torch.linalg.vector_norm(_local(t), dtype=torch.float64)
              for t in tensors]
     groups = [_shard_groups(t) for t in tensors]
@@ -73,7 +83,13 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
             dist.all_reduce(sq, group=group)
         for i, v in zip(sharded, sq.sqrt()):
             norms[i] = v
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    if tp_group is None:
+        return torch.linalg.vector_norm(torch.stack(norms)).float()
+    sq = torch.stack(norms) ** 2
+    mask = torch.tensor(tp_sharded, device=sq.device)
+    part = sq[mask].sum()
+    dist.all_reduce(part, group=tp_group)
+    return (part + sq[~mask].sum()).sqrt().float()
 
 
 class Optimizer:
@@ -87,6 +103,8 @@ class Optimizer:
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self.params = [p for _, p in named]
+        self.tp_group = getattr(model, "tp_group", None)
+        self.tp_sharded = [is_tp_sharded(n) for n, _ in named]
         self.lr, self.warmup_steps = lr, warmup_steps
         self.max_grad_norm = max_grad_norm
         self.opt = torch.optim.AdamW(
@@ -112,7 +130,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.tp_sharded, self.tp_group)
         keep = norm < self.max_grad_norm
         for g in map(_local, grads):
             g.copy_(torch.where(keep, g, g / norm * self.max_grad_norm))

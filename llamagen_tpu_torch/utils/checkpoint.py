@@ -17,6 +17,13 @@ trainer's usage window; a directory counts only once DCP has written its
 checkpoint of one world size resumes at another, or in one process.
 `save_full_model` writes the whole model state dict (upstream keys) from
 rank 0, which `cli/common.py::load_gpt` / `load_vq` load unchanged.
+
+Tensor parallelism: a TP rank's model, optimizer and EMA entries are its
+own shards under the same names as the other TP ranks', so DCP would take
+them for replicas; they are saved under a `tp{r}.` scope of their own.
+Such a checkpoint resumes at the same tp (resharding to another tp is not
+done). `save_full_model` gathers the TP shards and writes the whole model
+in upstream's `[Q | K | V]` layout.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch.distributed.checkpoint.state_dict import (StateDictOptions,
                                                      get_state_dict,
                                                      set_state_dict)
 
+from llamagen_tpu_torch.parallel.tp_decode import whole_tp_state
 from llamagen_tpu_torch.train.train_state import TrainState
 from llamagen_tpu_torch.train.vq import VQTrainState
 
@@ -61,15 +69,27 @@ def _modules(state: State):
     return out
 
 
+def _tp_scope(state: State) -> Optional[str]:
+    """`tp{r}` for a TP rank's state, else None."""
+    tp = getattr(state.model, "tp_size", 1)
+    return f"tp{state.model.tp_rank}" if tp > 1 else None
+
+
 def _sharded(state: State) -> Dict[str, Any]:
     """The state as DCP saves and loads it (tensors are the live ones, so
-    `dcp.load` fills them in place)."""
+    `dcp.load` fills them in place); a TP rank's entries under its scope."""
     sd: Dict[str, Any] = {"step": state.step}
+    own: Dict[str, Any] = {}
     for name, module, opt in _modules(state):
         msd, osd = get_state_dict(module, opt.opt)
-        sd[name], sd[f"optimizer_{name}"] = msd, osd
+        own[name], own[f"optimizer_{name}"] = msd, osd
     if state.ema is not None:
-        sd["ema"] = state.ema
+        own["ema"] = state.ema
+    scope = _tp_scope(state)
+    if scope is None:
+        sd.update(own)
+    else:
+        sd[scope] = own
     if isinstance(state, VQTrainState):
         sd["usage_window"] = state.usage_window
     return sd
@@ -105,9 +125,14 @@ def save_vq_step(ckpt_dir: str, step: int, state: VQTrainState) -> str:
 def save_full_model(path: str, state: State) -> Optional[str]:
     """The whole model state dict {"step", "model"} (upstream keys, on the
     CPU) written by rank 0 as a `.pt`; every rank must call it (FSDP2
-    gathers the shards). Returns the path on rank 0, else None."""
-    sd = get_model_state_dict(state.model, options=StateDictOptions(
-        full_state_dict=True, cpu_offload=True))
+    gathers the shards, a TP group its ranks' shards: `whole_tp_state`).
+    Returns the path on rank 0, else None."""
+    if _tp_scope(state) is None:
+        sd = get_model_state_dict(state.model, options=StateDictOptions(
+            full_state_dict=True, cpu_offload=True))
+    else:
+        sd = whole_tp_state(state.model, get_model_state_dict(
+            state.model, options=StateDictOptions(full_state_dict=True)))
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -138,9 +163,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def _restore_sharded(path: str, state: State) -> None:
     sd = _sharded(state)
     dcp.load(sd, checkpoint_id=path)
+    scope = _tp_scope(state)
+    own = sd if scope is None else sd[scope]
     for name, module, opt in _modules(state):
-        set_state_dict(module, opt.opt, model_state_dict=sd[name],
-                       optim_state_dict=sd[f"optimizer_{name}"])
+        set_state_dict(module, opt.opt, model_state_dict=own[name],
+                       optim_state_dict=own[f"optimizer_{name}"])
     state.step = int(sd["step"])
     if isinstance(state, VQTrainState):
         state.usage_window = sd["usage_window"]

@@ -42,7 +42,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 68  # every module was walked, parallel/'s too
+    assert len(names) >= 72  # every module was walked, parallel/'s too
     assert {"llamagen_tpu_torch.text.t5", "llamagen_tpu_torch.text.cleaning",
             "llamagen_tpu_torch.cli.sample_t2i",
             "llamagen_tpu_torch.cli.extract_t5_features",
@@ -67,7 +67,12 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
             "llamagen_tpu_torch.cli.sample_t2i_fid",
             "llamagen_tpu_torch.models.klvae",
             "llamagen_tpu_torch.models.consistency_decoder",
-            "llamagen_tpu_torch.cli.reconstruction_baseline"} <= names
+            "llamagen_tpu_torch.cli.reconstruction_baseline",
+            # tensor parallelism, profiling and the entry points
+            "llamagen_tpu_torch.parallel.tp_decode",
+            "llamagen_tpu_torch.parallel.collectives",
+            "llamagen_tpu_torch.utils.profiling",
+            "llamagen_tpu_torch.entry"} <= names
 
 
 def _fields(cfg):

@@ -25,7 +25,7 @@ from llamagen_tpu_torch.utils import checkpoint
     (-1, 2, 8, (4, 2)), (2, 2, 4, (2, 2)), (1, 1, 1, (1, 1)),
     (-1, 1, 1, (1, 1))])
 def test_mesh_shape_absorbs_the_rest(dp, fsdp, world, want):
-    assert mesh.mesh_shape(dp, fsdp, 1, world) == want
+    assert mesh.mesh_shape(dp, fsdp, 1, world) == want + (1,)
 
 
 @pytest.mark.parametrize("dp,fsdp,world", [
@@ -36,8 +36,15 @@ def test_mesh_shape_refuses_a_mesh_that_is_not_the_world(dp, fsdp, world):
 
 
 def test_tensor_parallel_training_is_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mesh.mesh_shape(1, -1, 2, 2)
+    """A TP degree is refused where the world cannot hold it; where it
+    can, tp is the mesh's third axis and -1 absorbs the rest around it."""
+    for dp, fsdp, tp, world in ((1, -1, 3, 4), (1, 1, 2, 1), (-1, 2, 2, 6),
+                                (1, -1, -1, 4)):
+        with pytest.raises(ValueError):
+            mesh.mesh_shape(dp, fsdp, tp, world)
+    assert mesh.mesh_shape(1, -1, 2, 2) == (1, 1, 2)
+    assert mesh.mesh_shape(-1, 2, 2, 8) == (2, 2, 2)
+    assert mesh.mesh_shape(1, 1, -1, 4) == (1, 1, 4)
 
 
 TORCHRUN = {"RANK": "3", "WORLD_SIZE": "8", "LOCAL_RANK": "1",

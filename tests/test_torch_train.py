@@ -271,11 +271,10 @@ def test_train_c2i_cli_synthetic(tmp_path):
 def test_train_c2i_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--synthetic-steps", "1", "--gpt-model", "GPT-nano",
             "--device", "cpu", "--results-dir", str(tmp_path)]
-    # tensor-parallel training waits for ROADMAP item 9; without torchrun
-    # the world is one process, so a larger mesh is refused
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_c2i.main(base + ["--tp", "2"])
-    for extra in (["--dp", "2"], ["--fsdp", "4"], ["--dp", "2", "--fsdp", "2"]):
+    # without torchrun the world is one process, so a larger mesh (a TP
+    # one too) is refused
+    for extra in (["--tp", "2"], ["--dp", "2"], ["--fsdp", "4"],
+                  ["--dp", "2", "--fsdp", "2"]):
         with pytest.raises(ValueError, match="ranks"):
             train_c2i.main(base + extra)
     with pytest.raises(ValueError, match="remat"):

@@ -278,7 +278,7 @@ def test_train_t2i_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="ranks"):  # one process: world 1
         train_t2i.main(["--synthetic-steps", "1", "--dp", "2",
                         "--device", "cpu", "--results-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="ranks"):  # a TP mesh too
         train_t2i.main(["--synthetic-steps", "1", "--tp", "2",
                         "--device", "cpu", "--results-dir", str(tmp_path)])
     with pytest.raises(SystemExit):

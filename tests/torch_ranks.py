@@ -72,16 +72,21 @@ def launch(name, world, *args, timeout=240, **kwargs):
 
 
 def _full_state(state):
-    """The whole parameters and EMA of a (sharded) GPT state, by name."""
+    """The whole parameters and EMA of a (sharded) GPT state, by name (TP
+    shards gathered, wqkv in [Q | K | V])."""
     from torch.distributed.checkpoint.state_dict import (StateDictOptions,
                                                          get_model_state_dict)
     from torch.distributed.tensor import DTensor
+    from llamagen_tpu_torch.parallel.tp_decode import whole_tp_state
     params = get_model_state_dict(state.model, options=StateDictOptions(
         full_state_dict=True))
     ema = None
     if state.ema is not None:
         ema = {n: e.full_tensor() if isinstance(e, DTensor) else e
                for n, e in state.ema.items()}
+    if state.model.tp_size > 1:
+        params = whole_tp_state(state.model, params)
+        ema = None if ema is None else whole_tp_state(state.model, ema)
     return ({n: p.detach().clone() for n, p in params.items()},
             None if ema is None else {n: e.clone() for n, e in ema.items()})
 
@@ -90,13 +95,13 @@ def _full_state(state):
 
 
 def gpt_steps(cfg, batches, dp=1, fsdp=-1, seed=0, dropout_seed=0,
-              vq_cfg=None, vq_weights=None, **kw):
+              vq_cfg=None, vq_weights=None, tp=1, **kw):
     """c2i (or t2i, given a VQ) steps on `batches` (global numpy batches:
     c2i (labels, tokens); t2i (images, captions, masks, valid)) over a
-    (dp, fsdp) mesh: per step the loss and grad norm, then the whole
+    (dp, fsdp, tp) mesh: per step the loss and grad norm, then the whole
     parameters and EMA."""
     assert distributed.init_distributed("cpu")
-    mesh = make_mesh(dp, fsdp, 1, "cpu")
+    mesh = make_mesh(dp, fsdp, tp, "cpu")
     if vq_cfg is None:
         state, step = c2i.build_trainer(cfg, "cpu", mesh=mesh, seed=seed,
                                         **kw)
@@ -111,7 +116,7 @@ def gpt_steps(cfg, batches, dp=1, fsdp=-1, seed=0, dropout_seed=0,
     out = {"loss": [], "grad_norm": [], "wrapped": state.wrapper is not None}
     for b in batches:
         batch = make(*(torch.from_numpy(x) for x in b))
-        state, m = step(state, shard_batch(batch), dropout_seed)
+        state, m = step(state, shard_batch(batch, mesh=mesh), dropout_seed)
         out["loss"].append(m["loss"].item())
         out["grad_norm"].append(m["grad_norm"].item())
     out["params"], out["ema"] = _full_state(state)
@@ -147,13 +152,13 @@ def vq_steps(cfg, loss_cfg, batches, lpips_sd=None, **kw):
 
 
 def checkpointed(cfg, batches, ckpt_dir, dp=1, fsdp=-1, save_at=None,
-                 resume=False, export=None, **kw):
+                 resume=False, export=None, tp=1, **kw):
     """GPT steps with a DCP save after `save_at` steps, or a resume from
     `ckpt_dir` before the steps; `export`: a whole-model file written at
     the end. Returns the losses, the step count and the whole state."""
     from llamagen_tpu_torch.utils import checkpoint
     assert distributed.init_distributed("cpu")
-    mesh = make_mesh(dp, fsdp, 1, "cpu")
+    mesh = make_mesh(dp, fsdp, tp, "cpu")
     state, step = c2i.build_trainer(cfg, "cpu", mesh=mesh, **kw)
     if resume:
         got, state = checkpoint.restore_latest(ckpt_dir, state)
@@ -161,7 +166,7 @@ def checkpointed(cfg, batches, ckpt_dir, dp=1, fsdp=-1, save_at=None,
     losses = []
     for b in batches:
         batch = c2i.Batch(*(torch.from_numpy(x) for x in b))
-        state, m = step(state, shard_batch(batch), 5)
+        state, m = step(state, shard_batch(batch, mesh=mesh), 5)
         losses.append(m["loss"].item())
         if state.step == save_at:
             checkpoint.save_step(ckpt_dir, state.step, state)
@@ -232,3 +237,62 @@ def run_cli(module, argv):
     import importlib
     return importlib.import_module(
         f"llamagen_tpu_torch.cli.{module}").main(argv)
+
+
+# --- tensor parallelism -------------------------------------------------------
+
+
+def _tp_model(case, tp, rank, group):
+    """The case's whole model (its state dict), quantised as it asks
+    ("int8": W8A16 layers; "w4": per-shard W4), then rank `rank`'s shard."""
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.parallel.tp_decode import (
+        quantize_gpt_params_w4k_tp, shard_tp_params)
+    model = gpt.Transformer(case["cfg"])
+    model.load_state_dict(case["sd"])
+    if case.get("quant") == "int8":
+        quantize_gpt_params(model)
+    elif case.get("quant") == "w4":
+        quantize_gpt_params_w4k_tp(model, tp, group_size=case["group_size"])
+    return shard_tp_params(model.eval(), rank, tp, group)
+
+
+def tp_cases(cases):
+    """Each case on a (1, 1, world) mesh: "engine" runs `ServeEngine(tp=)`
+    on `case["requests"]` (labels, or (caption, mask) pairs, each with
+    optional SamplingParams kwargs) and returns the tokens in submission
+    order; "decode" runs `gpt.decode_step` on the shard over
+    `case["tokens"]` [steps, B] from an empty cache of the shard's width in
+    `case["dtype"]` (compute and cache; f32 by default) and returns each
+    step's logits."""
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    assert distributed.init_distributed("cpu")
+    mesh = make_mesh(1, 1, -1, "cpu")
+    tp, rank = mesh["tp"].size(), mesh.get_local_rank("tp")
+    out = {}
+    for name, case in cases.items():
+        model = _tp_model(case, tp, rank, mesh["tp"].get_group())
+        if case["kind"] == "decode":
+            dtype = case.get("dtype", torch.float32)
+            toks = torch.from_numpy(case["tokens"])
+            cache = gpt.init_cache(model.cfg, toks.shape[1], 128, dtype,
+                                   "cpu", dtype,
+                                   kv_heads=model.n_local_kv_heads)
+            out[name] = np.stack([
+                gpt.decode_step(model, t, i, cache, dtype).numpy()
+                for i, t in enumerate(toks)])
+            continue
+        eng = ServeEngine(model, mesh=mesh, tp=tp, chunk=4,
+                          sampling_params=SamplingParams(**case["sp"]),
+                          **case["engine"])
+        reqs = []
+        for req, sp in case["requests"]:
+            sp = None if sp is None else SamplingParams(**sp)
+            reqs.append(eng.submit_caption(*req, sp=sp)
+                        if isinstance(req, tuple) else eng.submit(req, sp=sp))
+        eng.run_until_idle()
+        out[name] = np.stack([r.result for r in reqs])
+    return out
+
