@@ -196,12 +196,12 @@ Phases, each of which raises on a failed check (exit code != 0):
    images of 256 px within 1e-4 of each output's largest |value| of the
    CPU port (f32, TF32 off); img/s over 256 images at batch 64.
 39. The c2i FID sampler (`cli/sample_c2i_fid.py`) at GPT-L 384 -> 256 px,
-   bf16 weights and cache, 32 labels + CFG 2.0 a block, 64 samples, a
-   random checkpoint: K1 (bf16 entry) exactly 2 * 24 * 575 launches and
-   no other kernel, a [64, 256, 256, 3] uint8 .npy, img/s and ms per
-   step; under `torch.distributed.run --nproc_per_node 1` with 32
-   samples its rows equal the first 32; one block at seed 1 (phase 40's
-   reference batch).
+   bf16 weights and cache, 32 labels + CFG 2.0 a block, 32 samples (one
+   block, cut from two for the smoke's clock), a random checkpoint: K1
+   (bf16 entry) exactly 24 * 575 launches and no other kernel, a [32,
+   256, 256, 3] uint8 .npy, img/s and ms per step; under
+   `torch.distributed.run --nproc_per_node 1` its rows equal the same
+   32; one block at seed 1 (phase 40's reference batch).
 40. `cli/evaluate.py` (random Inception) on phase 39's batch against the
    seed-1 block: IS, FID, sFID, precision and recall finite; seconds per
    part.
@@ -251,12 +251,23 @@ Phases, each of which raises on a failed check (exit code != 0):
    f32 a rank, `all_gather_into_tensor`) timed alone.
 47. FSDP2 x TP at (1, 2, 2): four gloo ranks, one f32 step against one
    process's first (TWO_RANK_BOUNDS).
+48. Checkpoints across layouts, riding phases 46-47's launches: the
+   one-process run of phase 46's reference saves a `.pt` of step 2,
+   which the two tp-2 ranks resume; they save a DCP directory of their
+   own step 2, which the four (1, 2, 2) ranks and this process resume.
+   Each load, made whole, equals the saved state bit for bit
+   (parameters, both Adam moments, EMA, step); each resumed step 3
+   matches the unbroken run's loss and grad norm within TWO_RANK_BOUNDS,
+   with K4 exactly 2 * 4, 4 and 4 launches a rank; the seconds to save
+   and to load and the GB on disk against the `.pt`'s are printed.
 
 Phase 2 also holds K1 (bf16 and int8) and K5 at GPT-XL's 20 heads with the
 t2i paths' positions and pads 0, 60, 96, 100 and 119 against their plain
 versions, K2 at the GPT-XL shapes (B 16 and the admission's 1,920 rows),
-and times them there; and K1's bf16 entry at the FID samplers' shapes
-(c2i B 64, S 640; t2i B 8, S 384 with pads).
+and times them there; K1's bf16 entry at the FID samplers' shapes (c2i B
+64, S 640; t2i B 8, S 384 with pads); and the int4 storage mode
+(`bits=4`, plain PyTorch) at GPT-L's wqkv, its levels and product on the
+card against the CPU's.
 
 Comparisons run in bf16 (K4 also f32) with TF32 off for matmuls and
 convolutions. The
@@ -264,8 +275,9 @@ last line is `{"ok": true, "device": {...}}`; the line before it is the
 kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
 library time; then K1, K2 and K5 again at the t2i sampling shapes, K4 at
 the t2i training shape, K2, K3 and K5 on the speculative engine's path,
-K1 on the FID samplers' paths, and K1, K2, K3 and K4 at the TP ranks'
-shapes), the one before that the card's name and power limit.
+K1 on the FID samplers' paths, K1, K2, K3 and K4 at the TP ranks'
+shapes, and K4 on the step after a checkpoint resumed at tp 2), the one
+before that the card's name and power limit.
 Needs a CUDA device; runs nothing without one.
 """
 
@@ -712,6 +724,7 @@ def check_int8_matmul(dev):
                 raise AssertionError(f"K2 {name} B={b} disagrees")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
+    check_int4_storage(dev)
     timings = time_int8_matmul(dev)
     timings.update(time_int8_matmul(dev, b=ENGINE_ROWS, shapes=dict(
         GPT_L_MATMULS, head=(1024, 16384))))
@@ -725,6 +738,32 @@ def check_int8_matmul(dev):
     timings.update(time_int8_matmul(dev, b=SPEC_ENGINE_ROWS, shapes={
         "wqkv": GPT_L_MATMULS["wqkv"]}, tag=" spec"))
     return worst, timings
+
+
+def check_int4_storage(dev):
+    """The int4 storage mode (`quantize_gpt_params(..., bits=4)`, plain
+    PyTorch) at GPT-L's wqkv, [16, 1024] x [1024, 3072] f32, TF32 off: the
+    card's packed levels and group scales equal the CPU port's bit for
+    bit, its `int4_matmul` within 1e-5 of the largest |value| of the
+    CPU's."""
+    from llamagen_tpu_torch.ops.quant_matmul import (int4_matmul,
+                                                     quantize_weight_int4)
+    g = torch.Generator().manual_seed(13)
+    k, n = GPT_L_MATMULS["wqkv"]
+    w = torch.randn(k, n, generator=g) * 0.02
+    x = torch.randn(16, k, generator=g)
+    p, s = quantize_weight_int4(w)
+    pd, sd = quantize_weight_int4(w.to(dev))
+    ref = int4_matmul(x, p, s)
+    got = int4_matmul(x.to(dev), pd, sd).cpu()
+    same = torch.equal(pd.cpu(), p) and torch.equal(sd.cpu(), s)
+    err = (got - ref).abs().max().item()
+    tol = 1e-5 * ref.abs().max().item()
+    log(f"int4 storage (bits=4, group 128) GPT-L wqkv [16,{k}]x[{k},{n}] "
+        f"f32: levels and scales == CPU's {same}; int4_matmul max_abs_err "
+        f"{err:.3g} (tol {tol:.3g})")
+    if not same or not err <= tol:
+        raise AssertionError("int4 storage: the card disagrees with the CPU")
 
 
 def time_int8_matmul(dev, full=True, b=16, shapes=None, tag=""):
@@ -3166,6 +3205,14 @@ TWO_RANK_BOUNDS = {"loss": 1e-4, "grad_norm": 1e-4, "param_lr": 0.1}
 DIST_VQ_ENTROPY = 0.1  # the entropy term's ratio in the VQ-GAN phases
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def run_command(cmd, timeout):
     """(exit code, stdout, stderr) of a subprocess in its own session, run
     from the repo root; its whole group is killed if it outlives
@@ -3289,16 +3336,13 @@ def world1_worker(dev, args):
     return out
 
 
-def two_rank_c2i(dev, mesh, path=None, steps=DIST_STEPS):
-    """`steps` steps of GPT-L width cut to TWO_RANK_LAYERS layers, f32
-    compute, full remat, dropout off, a random head built on the CPU,
-    global batch TWO_RANK_BATCH (this rank's rows with a mesh; a TP rank's
-    shard of the model where the mesh's tp > 1): losses, grad norms, K4
-    launches; the whole parameters (TP shards gathered) saved to `path`
-    (rank 0)."""
+def two_rank_setup(dev, mesh):
+    """The trainer of `two_rank_c2i` (GPT-L width cut to TWO_RANK_LAYERS
+    layers, f32 compute, full remat, dropout off, a random head built on
+    the CPU; this rank's TP shard where the mesh's tp > 1) and its
+    DIST_STEPS global batches of TWO_RANK_BATCH rows."""
     from llamagen_tpu_torch.config import gpt_config, replace
     from llamagen_tpu_torch.models import gpt
-    from llamagen_tpu_torch.parallel.mesh import shard_batch
     from llamagen_tpu_torch.train import c2i
     cfg = replace(gpt_config("GPT-L", block_size=TOKENS, cls_token_num=1,
                              class_dropout_prob=0.0, token_dropout_p=0.0,
@@ -3313,23 +3357,56 @@ def two_rank_c2i(dev, mesh, path=None, steps=DIST_STEPS):
         compute_dtype=torch.float32, remat="full", mesh=mesh,
         weights=init.state_dict())
     del init
+    batches = [c2i.Batch(
+        torch.randint(0, 1000, (TWO_RANK_BATCH,), generator=g),
+        torch.randint(0, 16384, (TWO_RANK_BATCH, TOKENS), generator=g))
+        for _ in range(DIST_STEPS)]
+    return state, step, batches
+
+
+def two_rank_step(dev, mesh, state, step, batch):
+    """One step on this rank's rows of `batch`: (loss, grad norm, s)."""
+    from llamagen_tpu_torch.parallel.mesh import shard_batch
+    from llamagen_tpu_torch.train import c2i
+    t0 = time.time()
+    if mesh is not None:
+        batch = shard_batch(batch, mesh=mesh)
+    state, m = step(state, c2i.Batch(batch.labels.to(dev),
+                                     batch.tokens.to(dev)), 0)
+    loss = m["loss"].item()  # waits for the step
+    return loss, m["grad_norm"].item(), time.time() - t0
+
+
+def two_rank_c2i(dev, mesh, path=None, steps=DIST_STEPS, ckpt=None):
+    """`steps` steps of `two_rank_setup`'s trainer (this rank's rows with
+    a mesh): losses, grad norms, K4 launches; the whole parameters (TP
+    shards gathered) saved to `path` (rank 0). `ckpt` (dir, file): a
+    checkpoint of the step-2 state saved into dir (`save_step`: a `.pt`
+    in one process, else DCP; its seconds and GB), and the state made
+    whole written to file (`whole_state_cpu`, rank 0) for the resumes to
+    hold their loads against."""
+    from llamagen_tpu_torch.utils import checkpoint
+    state, step, batches = two_rank_setup(dev, mesh)
     for f in k4_kernels():
         f.launches = 0
     out = {"loss": [], "grad_norm": [], "step_s": []}
-    for i in range(steps):
-        t0 = time.time()
-        batch = c2i.Batch(
-            torch.randint(0, 1000, (TWO_RANK_BATCH,), generator=g),
-            torch.randint(0, 16384, (TWO_RANK_BATCH, TOKENS), generator=g))
-        if mesh is not None:
-            batch = shard_batch(batch, mesh=mesh)
-        state, m = step(state, c2i.Batch(batch.labels.to(dev),
-                                         batch.tokens.to(dev)), 0)
-        out["loss"].append(m["loss"].item())  # waits for the step
-        out["grad_norm"].append(m["grad_norm"].item())
-        out["step_s"].append(time.time() - t0)
+    for i, batch in enumerate(batches[:steps]):
+        loss, norm, s = two_rank_step(dev, mesh, state, step, batch)
+        out["loss"].append(loss)
+        out["grad_norm"].append(norm)
+        out["step_s"].append(s)
         log(f"c2i {'one process' if mesh is None else mesh} step {i}: "
-            f"loss {out['loss'][-1]:.6f}, {out['step_s'][-1]:.3f} s")
+            f"loss {loss:.6f}, {s:.3f} s")
+        if ckpt is not None and state.step == 2:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            saved = checkpoint.save_step(ckpt[0], state.step, state)
+            out["save_s"] = time.time() - t0
+            out["ckpt_gb"] = path_gb(saved)
+            whole = whole_state_cpu(state)
+            if mesh is None or torch.distributed.get_rank() == 0:
+                torch.save(whole, ckpt[1])
+            del whole
     out["launches"] = {f.__name__: f.launches for f in k4_kernels()}
     if mesh is None:
         out["params"] = {k: v.detach().cpu()
@@ -3347,27 +3424,93 @@ def two_rank_c2i(dev, mesh, path=None, steps=DIST_STEPS):
     return out
 
 
+def _whole_cpu(t):
+    """A tensor whole on the CPU: an FSDP2 DTensor's dim-0 shards
+    (`torch.chunk` sizes) gathered as CPU tensors over its mesh's group
+    (see `whole_params_on_cpu`)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t.detach().cpu()
+    group = t.device_mesh.get_group()
+    size = torch.distributed.get_world_size(group)
+    local = t.to_local().detach().cpu()
+    rows = -(-t.shape[0] // size)
+    padded = torch.zeros((rows,) + tuple(t.shape[1:]), dtype=t.dtype)
+    padded[:local.shape[0]] = local
+    parts = [torch.empty_like(padded) for _ in range(size)]
+    torch.distributed.all_gather(parts, padded, group=group)
+    return torch.cat(parts)[:t.shape[0]]
+
+
+def whole_state_cpu(state):
+    """A GPT train state made whole on the CPU, on every rank: the
+    parameters, both Adam moments and the EMA by name (FSDP2 rows
+    gathered over the fsdp group, TP shards by `whole_tp_state`, wqkv in
+    [Q | K | V]) and the step."""
+    from llamagen_tpu_torch.parallel.tp_decode import whole_tp_state
+    model = state.model
+
+    def whole(d):
+        d = {n: _whole_cpu(t) for n, t in d.items()}
+        if model.tp_size > 1:
+            d = whole_tp_state(model, d)
+        return d
+
+    name = {id(p): n for n, p in model.named_parameters()}
+    opt = state.optimizer.opt.state
+    return {"params": whole(dict(model.named_parameters())),
+            "ema": whole(state.ema),
+            **{k: whole({name[id(p)]: s[k] for p, s in opt.items()})
+               for k in ("exp_avg", "exp_avg_sq")},
+            "step": state.step}
+
+
+def resume_c2i(dev, mesh, ckpt_dir, saved_path, unbroken):
+    """Phase 48 at one layout: `two_rank_setup`'s trainer at `mesh` (one
+    process for None) resumes `ckpt_dir` (the seconds of the load); the
+    loaded state made whole against `saved_path` bit for bit (parameters,
+    both Adam moments, EMA, step); then step 3 (the third global batch)
+    with the K4 counters set to 0 just before it: loss and grad norm
+    against `unbroken` (the unbroken run's step-3 values), K4 launches."""
+    from llamagen_tpu_torch.utils import checkpoint
+    state, step, batches = two_rank_setup(dev, mesh)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got, state = checkpoint.restore_latest(ckpt_dir, state, log=log)
+    torch.cuda.synchronize()
+    out = {"load_s": time.time() - t0, "step_loaded": got}
+    loaded = whole_state_cpu(state)
+    saved = torch.load(saved_path, weights_only=True)
+    out["unequal"] = [] if loaded["step"] == saved["step"] else ["step"]
+    for key in ("params", "exp_avg", "exp_avg_sq", "ema"):
+        if loaded[key].keys() != saved[key].keys():
+            out["unequal"].append(f"{key} names")
+            continue
+        out["unequal"] += [f"{key} {n}" for n, t in saved[key].items()
+                           if not torch.equal(loaded[key][n], t)]
+    del loaded, saved
+    for f in k4_kernels():
+        f.launches = 0
+    loss, norm, s = two_rank_step(dev, mesh, state, step, batches[2])
+    out.update(loss=loss, grad_norm=norm, step_s=s,
+               launches={f.__name__: f.launches for f in k4_kernels()},
+               rel={"loss": abs(loss / unbroken["loss"] - 1),
+                    "grad_norm": abs(norm / unbroken["grad_norm"] - 1)})
+    log(f"resumed at {'one process' if mesh is None else mesh}: load "
+        f"{out['load_s']:.2f} s, unequal after the load "
+        f"{out['unequal'][:4]}, step 3 loss {loss:.6f} (unbroken "
+        f"{unbroken['loss']:.6f}), K4 {out['launches']}")
+    del state
+    _free()
+    return out
+
+
 def whole_params_on_cpu(model):
-    """Every parameter whole on every rank, as CPU tensors: FSDP2's dim-0
-    shards (`torch.chunk` sizes) gathered by gloo on the CPU. Over gloo,
-    DTensor's own gather of CUDA shards (`full_tensor`,
+    """Every parameter whole on every rank, as CPU tensors (`_whole_cpu`).
+    Over gloo, DTensor's own gather of CUDA shards (`full_tensor`,
     `get_model_state_dict(full_state_dict=True)`) crashes the process
     (SIGSEGV in its functional all-gather, torch 2.11)."""
-    from torch.distributed.tensor import DTensor
-    world = torch.distributed.get_world_size()
-    out = {}
-    for name, p in model.named_parameters():
-        if not isinstance(p, DTensor):
-            out[name] = p.detach().cpu()
-            continue
-        local = p.to_local().detach().cpu()
-        rows = -(-p.shape[0] // world)
-        padded = torch.zeros((rows,) + tuple(p.shape[1:]), dtype=p.dtype)
-        padded[:local.shape[0]] = local
-        parts = [torch.empty_like(padded) for _ in range(world)]
-        torch.distributed.all_gather(parts, padded)
-        out[name] = torch.cat(parts)[:p.shape[0]]
-    return out
+    return {name: _whole_cpu(p) for name, p in model.named_parameters()}
 
 
 def two_rank_vq(dev, mesh):
@@ -3580,7 +3723,8 @@ def check_two_ranks(dev, recs, tmp):
 # Phases 38-42: evaluation and the baseline tokenizers
 # ---------------------------------------------------------------------------
 
-FID_BATCH, FID_SAMPLES, FID_CFG = 32, 64, 2.0  # the JAX CLI docstring's cfg
+# the JAX CLI docstring's cfg; one block of samples (the smoke's clock)
+FID_BATCH, FID_SAMPLES, FID_CFG = 32, 32, 2.0
 FID_PROMPTS = ["an owl", "a red double-decker bus in the rain",
                "two dogs asleep on an old sofa next to a reading lamp, oil "
                "painting",
@@ -3654,12 +3798,12 @@ def run_inception(dev):
 
 def run_fid_sampler(dev, tmp):
     """Phase 39: `cli/sample_c2i_fid.py` at GPT-L 384 -> 256 px, bf16
-    weights and cache, 32 labels a block, cfg 2.0, 64 samples (2 blocks)
-    from a random checkpoint: K1 exactly 2 * 24 * 575 launches and no
-    other kernel, a [64, 256, 256, 3] uint8 .npy, img/s and ms per step.
-    Then the same CLI under `torch.distributed.run --nproc_per_node 1`
-    with 32 samples: its rows equal the first 32. Then one block at seed
-    1, the reference batch of phase 40."""
+    weights and cache, 32 labels a block, cfg 2.0, FID_SAMPLES samples
+    from a random checkpoint: K1 exactly 24 * 575 launches a block and no
+    other kernel, a [FID_SAMPLES, 256, 256, 3] uint8 .npy, img/s and ms
+    per step. Then the same CLI under `torch.distributed.run
+    --nproc_per_node 1` with 32 samples: its rows equal the first 32.
+    Then one block at seed 1, the reference batch of phase 40."""
     from llamagen_tpu_torch.cli import sample_c2i_fid as fid_cli
     ckpt = os.path.join(tmp, "gpt_l_384.pt")
     torch.save(gpt_model(dev, seed=39).state_dict(), ckpt)
@@ -4331,9 +4475,14 @@ def tp_train_worker(dev, args):
     from llamagen_tpu_torch.cli import train_c2i
     from llamagen_tpu_torch.parallel.mesh import make_mesh
     tp_train_model_entry()
-    out = {"c2i": two_rank_c2i(dev, make_mesh(1, 1, TP, dev.type),
-                               os.path.join(args["dir"], "tp.pt")),
+    ck = args["ckpt"]
+    mesh = make_mesh(1, 1, TP, dev.type)
+    out = {"c2i": two_rank_c2i(dev, mesh, os.path.join(args["dir"], "tp.pt"),
+                               ckpt=(ck["tp_dir"], ck["tp_saved"])),
            "gather_ms": time_train_gather(dev)}
+    # phase 48: the one-process `.pt` of step 2 resumed at (1, 1, 2)
+    out["resume_pt"] = resume_c2i(dev, mesh, ck["pt_dir"], ck["pt_saved"],
+                                  ck["one_step3"])
     for f in k4_kernels():
         f.launches = 0
     t0 = time.time()
@@ -4351,10 +4500,15 @@ def tp_train_worker(dev, args):
 
 def tp_four_worker(dev, args):
     """Phase 47, one of four gloo ranks: one f32 step at (1, 2, 2), FSDP2
-    over the fsdp pairs of each TP rank."""
+    over the fsdp pairs of each TP rank; then phase 48: phase 46's
+    (1, 1, 2) DCP checkpoint of step 2 resumed at (1, 2, 2)."""
     from llamagen_tpu_torch.parallel.mesh import make_mesh
-    return {"c2i": two_rank_c2i(dev, make_mesh(1, 2, TP, dev.type),
-                                steps=1)}
+    mesh = make_mesh(1, 2, TP, dev.type)
+    out = {"c2i": two_rank_c2i(dev, mesh, steps=1)}
+    ck = args["ckpt"]
+    out["resume_tp"] = resume_c2i(dev, mesh, ck["tp_dir"], ck["tp_saved"],
+                                  ck["tp_step3"])
+    return out
 
 
 RANK_WORKERS.update({"tp_serving": tp_serving_worker,
@@ -4367,25 +4521,46 @@ def run_tp_train(dev):
     in four, against one process (TWO_RANK_BOUNDS); K4 counters per rank
     exactly 2 * L * steps and L * steps; the CLI's export through
     `load_gpt`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return tp_train_phases(dev, tmp)
+
+
+def tp_train_phases(dev, tmp):
+    """`run_tp_train` with its files in `tmp`; phase 48 (checkpoints
+    across layouts) rides on phases 46-47's launches: the one-process
+    reference saves a `.pt` of step 2, which phase 46's (1, 1, 2) ranks
+    resume for step 3; they save a DCP directory of their own step 2,
+    which phase 47's (1, 2, 2) ranks and this process resume. Each load,
+    made whole, must equal the saved state bit for bit, each resumed step
+    3 the unbroken run's within TWO_RANK_BOUNDS, with K4 at 2 * L, L and L
+    launches a rank."""
     from llamagen_tpu_torch.cli.common import load_gpt
     tp_train_model_entry()
-    ref = two_rank_c2i(dev, None)
+    for d in ("r2", "r4"):
+        os.makedirs(os.path.join(tmp, d))
+    ck = {k: os.path.join(tmp, k) for k in ("pt_dir", "tp_dir")}
+    ck.update(pt_saved=os.path.join(tmp, "pt_saved.pt"),
+              tp_saved=os.path.join(tmp, "tp_saved.pt"))
+    ref = two_rank_c2i(dev, None, ckpt=(ck["pt_dir"], ck["pt_saved"]))
+    ck["one_step3"] = {"loss": ref["loss"][2],
+                       "grad_norm": ref["grad_norm"][2]}
     L = TWO_RANK_LAYERS
     lr_sum = TWO_RANK_LR * (DIST_STEPS - 1)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        recs = launch_ranks(2, "tp_train", {"dir": tmp, "backend": "gloo"})
-        log(f"TP training launch: {time.time() - t0:.1f} s")
-        params = torch.load(os.path.join(tmp, "tp.pt"), weights_only=True)
-        perr = max((params[k] - v).abs().max().item()
-                   for k, v in ref["params"].items())
-        del params
-        export = os.path.join(tmp, "cli", "checkpoints",
-                              f"step_{DIST_STEPS:08d}_model.pt")
-        model = load_gpt(export, TP_TRAIN_MODEL, 384, 16, torch.float32, dev)
-        n = sum(p.numel() for p in model.parameters())
-        finite = all(torch.isfinite(p).all() for p in model.parameters())
-        del model
+    t0 = time.time()
+    recs = launch_ranks(2, "tp_train", {"dir": os.path.join(tmp, "r2"),
+                                        "backend": "gloo", "ckpt": ck})
+    log(f"TP training launch: {time.time() - t0:.1f} s")
+    params = torch.load(os.path.join(tmp, "r2", "tp.pt"),
+                        weights_only=True)
+    perr = max((params[k] - v).abs().max().item()
+               for k, v in ref["params"].items())
+    del params
+    export = os.path.join(tmp, "r2", "cli", "checkpoints",
+                          f"step_{DIST_STEPS:08d}_model.pt")
+    model = load_gpt(export, TP_TRAIN_MODEL, 384, 16, torch.float32, dev)
+    n = sum(p.numel() for p in model.parameters())
+    finite = all(torch.isfinite(p).all() for p in model.parameters())
+    del model
     errs = {"loss": max(_rel(r["c2i"]["loss"], ref["loss"]) for r in recs),
             "grad_norm": max(_rel(r["c2i"]["grad_norm"], ref["grad_norm"])
                              for r in recs),
@@ -4424,10 +4599,12 @@ def run_tp_train(dev):
         f"export): {n / 1e6:.1f}M parameters, finite {finite}")
     if not finite or [r["cli"]["step"] for r in recs] != [DIST_STEPS] * 2:
         raise AssertionError("the TP CLI run or its export")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        recs4 = launch_ranks(4, "tp_four", {"dir": tmp, "backend": "gloo"})
-        log(f"(1, 2, 2) launch: {time.time() - t0:.1f} s")
+    ck["tp_step3"] = {"loss": recs[0]["c2i"]["loss"][2],
+                      "grad_norm": recs[0]["c2i"]["grad_norm"][2]}
+    t0 = time.time()
+    recs4 = launch_ranks(4, "tp_four", {"dir": os.path.join(tmp, "r4"),
+                                        "backend": "gloo", "ckpt": ck})
+    log(f"(1, 2, 2) launch: {time.time() - t0:.1f} s")
     errs4 = {"loss": max(abs(r["c2i"]["loss"][0] / ref["loss"][0] - 1)
                          for r in recs4),
              "grad_norm": max(abs(r["c2i"]["grad_norm"][0]
@@ -4441,8 +4618,46 @@ def run_tp_train(dev):
     if any(errs4[k] > TWO_RANK_BOUNDS[k] for k in errs4) \
             or any(r["c2i"]["launches"] != want4 for r in recs4):
         raise AssertionError(f"(1, 2, 2): {errs4}")
+    ckpt = check_resumes(dev, ck, ref, recs, recs4)
     return {"errs": errs, "errs4": errs4, "gather_ms": gather,
-            "launches": recs[0]["cli"]["launches"]}
+            "launches": recs[0]["cli"]["launches"], "ckpt": ckpt}
+
+
+def check_resumes(dev, ck, ref, recs, recs4):
+    """Phase 48's checks and lines: phase 46's DCP directory resumed in
+    this process too; each resume bit-equal, within TWO_RANK_BOUNDS, with
+    K4 at 2 * L, L and L; the seconds to save and to load, the GB on disk
+    against the `.pt`'s, on the card named."""
+    L = TWO_RANK_LAYERS
+    one = resume_c2i(dev, None, ck["tp_dir"], ck["tp_saved"],
+                     ck["tp_step3"])
+    resumes = {f".pt -> (1, 1, 2) rank {r['rank']}": r["resume_pt"]
+               for r in recs}
+    resumes.update({f"DCP (1, 1, 2) -> (1, 2, 2) rank {r['rank']}":
+                    r["resume_tp"] for r in recs4})
+    resumes["DCP (1, 1, 2) -> one process"] = one
+    want = {"train_attention_fwd": 2 * L, "train_attention_dq": L,
+            "train_attention_dkdv": L}
+    for label, r in resumes.items():
+        log(f"phase 48 {label}: load {r['load_s']:.3f} s; loaded state == "
+            f"saved bit for bit: {not r['unequal']}; step 3 relative "
+            f"differences {r['rel']} (TWO_RANK_BOUNDS); K4 {r['launches']}")
+        if r["unequal"] or r["step_loaded"] != 2 or r["launches"] != want \
+                or any(r["rel"][k] > TWO_RANK_BOUNDS[k] for k in r["rel"]):
+            raise AssertionError(f"phase 48 {label}: {r}")
+    dcp_gb = recs[0]["c2i"]["ckpt_gb"]
+    save_s = max(r["c2i"]["save_s"] for r in recs)
+    log(f"phase 48 checkpoints (GPT-L width, {L} layers, f32 state with "
+        f"both Adam moments and the EMA) on {card_line()}: one-process "
+        f".pt save {ref['save_s']:.3f} s, {ref['ckpt_gb']:.4f} GB; DCP at "
+        f"(1, 1, 2) save {save_s:.3f} s (slower rank), {dcp_gb:.4f} GB = "
+        f"{dcp_gb / ref['ckpt_gb']:.4f} x the .pt; loads: .pt -> (1, 1, 2) "
+        f"{max(r['resume_pt']['load_s'] for r in recs):.3f} s, DCP -> "
+        f"(1, 2, 2) {max(r['resume_tp']['load_s'] for r in recs4):.3f} s, "
+        f"DCP -> one process {one['load_s']:.3f} s (slower rank)")
+    if dcp_gb > 1.05 * ref["ckpt_gb"]:
+        raise AssertionError(f"DCP {dcp_gb} GB > 1.05 x {ref['ckpt_gb']}")
+    return {"launches": recs[0]["resume_pt"]["launches"]}
 
 
 
@@ -4455,10 +4670,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.time()
@@ -4665,6 +4877,16 @@ def main():
                 f"{TWO_RANK_BATCH}, S {TOKENS}, 8 heads]", k4,
                 f"llamagen_tpu/ops/train_attention.py:{line}",
                 tp_train["launches"][name], tp_err["K4"][key],
+                tp_t["K4"]["record"][key])
+          for name, key, line in (("train_attention_fwd", "fwd", 195),
+                                  ("train_attention_dq", "dq", 213),
+                                  ("train_attention_dkdv", "dkdv", 213))),
+        # checkpoints across layouts: the step after a one-process `.pt`
+        # resumed at tp 2 (rank 0's counts)
+        *(entry(f"{name} [resumed TP rank: GPT-L tp {TP} from a one-process"
+                f" .pt, B {TWO_RANK_BATCH}, S {TOKENS}, 8 heads]", k4,
+                f"llamagen_tpu/ops/train_attention.py:{line}",
+                tp_train["ckpt"]["launches"][name], tp_err["K4"][key],
                 tp_t["K4"]["record"][key])
           for name, key, line in (("train_attention_fwd", "fwd", 195),
                                   ("train_attention_dq", "dq", 213),

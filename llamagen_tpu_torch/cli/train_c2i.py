@@ -14,7 +14,9 @@ stride of the global batch (the ranks of a TP group the same rows), logs
 and metrics come from rank 0, and checkpoints are sharded DCP
 directories, the final one beside a whole-model `step_XXXXXXXX_model.pt`
 (upstream's layout, TP shards gathered) that the sampling CLIs load.
-`--backend gloo` lets ranks share one card.
+`--resume` reads a checkpoint saved at any (dp, fsdp, tp) or by one
+process and logs both layouts (`utils/checkpoint.py`). `--backend gloo`
+lets ranks share one card.
 
   python -m llamagen_tpu_torch.cli.train_c2i --code-path /data/codes \
       --gpt-model GPT-L --image-size 384 --global-batch-size 32
@@ -86,7 +88,8 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=5000)
     p.add_argument("--results-dir", default="results")
     p.add_argument("--resume", default=None,
-                   help="checkpoint dir to resume from (its newest step)")
+                   help="checkpoint dir to resume from (its newest step, "
+                        "saved at any layout or in one process)")
     p.add_argument("--exp-auto", action="store_true",
                    help="create an auto-numbered {index:03d}-{model} "
                         "experiment subdir")
@@ -140,10 +143,11 @@ def train(args, device, mesh):
 
     start_step = 0
     if args.resume:
-        step, restored = checkpoint.restore_latest(args.resume, state)
+        # any layout the directory holds, onto the one the flags ask for
+        step, restored = checkpoint.restore_latest(args.resume, state,
+                                                   log=logger.info)
         if restored is not None:
             start_step = step
-            logger.info(f"resumed from step {start_step}")
 
     host_batch = local_batch_size(args.global_batch_size, world)
     it = None

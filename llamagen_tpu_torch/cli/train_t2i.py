@@ -6,9 +6,10 @@ Trains on images + precomputed T5 caption features (a jsonl dataset,
 step (`train/t2i.py`), with per-sample caption masks and the `valid`
 bad-sample loss mask. Same flags and defaults as the JAX CLI, plus
 `--device`; `metrics.jsonl`, periodic and final
-checkpoints, resume. Across GPUs under torchrun, `--dp` / `--fsdp` /
-`--tp` as in `cli/train_c2i.py` (DDP, FSDP2, HSDP, tensor parallelism;
-sharded DCP checkpoints and a whole-model export); the frozen VQ and the
+checkpoints, resume (from any layout, `cli/train_c2i.py`). Across GPUs
+under torchrun, `--dp` / `--fsdp` / `--tp` as in `cli/train_c2i.py` (DDP,
+FSDP2, HSDP, tensor parallelism; sharded DCP checkpoints and a whole-model
+export); the frozen VQ and the
 caption embedder are whole on every rank, and the VQ encodes that rank's
 images (the ranks of a TP group encode the same rows).
 
@@ -98,7 +99,8 @@ def main(argv=None):
     p.add_argument("--ckpt-every", type=int, default=5000)
     p.add_argument("--results-dir", default="results_t2i")
     p.add_argument("--resume", default=None,
-                   help="checkpoint dir to resume from (its newest step)")
+                   help="checkpoint dir to resume from (its newest step, "
+                        "saved at any layout or in one process)")
     p.add_argument("--exp-auto", action="store_true",
                    help="create an auto-numbered {index:03d}-{model} "
                         "experiment subdir")
@@ -150,10 +152,11 @@ def train(args, device, mesh):
 
     start_step = 0
     if args.resume:
-        step, restored = checkpoint.restore_latest(args.resume, state)
+        # any layout the directory holds, onto the one the flags ask for
+        step, restored = checkpoint.restore_latest(args.resume, state,
+                                                   log=logger.info)
         if restored is not None:
             start_step = step
-            logger.info(f"resumed from step {start_step}")
 
     host_batch = local_batch_size(args.global_batch_size, world)
     if args.synthetic_steps > 0:

@@ -14,6 +14,8 @@ entry loads as a tokenizer). Under torchrun `--dp` ranks (default -1:
 every rank) train data-parallel, both models replicated, each rank on its
 stride of the global batch (`train/vq.py`); checkpoints are then DCP
 directories, the last beside a whole-model `step_XXXXXXXX_model.pt`.
+`--resume DIR` loads its newest checkpoint, a one-process `.pt` or a DCP
+directory of any dp, and logs both layouts (`utils/checkpoint.py`).
 
   python -m llamagen_tpu_torch.cli.train_vq --data-path /data/imagenet/train \\
       --image-size 256 --vq-model VQ-16
@@ -136,6 +138,9 @@ def main(argv=None):
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--ckpt-every", type=int, default=5000)
     p.add_argument("--results-dir", default="results_vq")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint dir to resume from (its newest step, "
+                        "saved at any dp or in one process)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.vgg_weights and not args.lpips_lins:
@@ -179,6 +184,8 @@ def train(args, device, mesh):
         compute_dtype=(torch.bfloat16 if args.mixed_precision == "bf16"
                        else torch.float32),
         remat=not args.no_remat, mesh=mesh)
+    if args.resume:
+        checkpoint.restore_latest(args.resume, state, log=logger.info)
 
     if args.synthetic_steps > 0:
         batches = synthetic_batches(args.image_size, args.global_batch_size,
@@ -193,7 +200,7 @@ def train(args, device, mesh):
         raise SystemExit("need --data-path or --synthetic-steps")
 
     ckpt_dir = os.path.join(args.results_dir, "checkpoints")
-    t0, last = time.time(), 0
+    t0, last = time.time(), state.step
     for imgs in batches:
         if 0 < max_steps <= state.step:
             break

@@ -47,7 +47,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from llamagen_tpu_torch.config import GPTConfig
 from llamagen_tpu_torch.ops.attention import (TAIL, batch_positions,
                                               decode_attention, quantize_rows)
-from llamagen_tpu_torch.ops.quant_matmul import matmul_any, quantize_weight
+from llamagen_tpu_torch.ops.quant_matmul import (matmul_any, quantize_weight,
+                                                 quantize_weight_int4)
 from llamagen_tpu_torch.ops.train_attention import (TRAIN_ATTENTION_OP,
                                                     causal_attention_padded)
 from llamagen_tpu_torch.ops.w4_matmul import SEG_ROWS, pack_w4
@@ -125,9 +126,13 @@ class Linear(nn.Module):
     holds W8A16 `weight_q [in, out]` int8 + `weight_scale [out]` f32 and
     runs on the int8 kernel (`ops.quant_matmul`); after `quantize_w4_()` it
     holds W4 `weight_w4b [NB, in/2, BN]` int8 + `weight_w4s [NB, R, BN]`
-    f32 and runs on the W4 kernel (`ops.w4_matmul`) for rank-2 inputs."""
+    f32 and runs on the W4 kernel (`ops.w4_matmul`) for rank-2 inputs;
+    after `quantize_int4_()` it holds int4 storage `weight_q4 [in, out/2]`
+    int8 nibble pairs + `weight_gs [G, out]` f32 (`ops.quant_matmul
+    .int4_matmul`, plain PyTorch)."""
 
-    QUANT_KEYS = ("weight_q", "weight_scale", "weight_w4b", "weight_w4s")
+    QUANT_KEYS = ("weight_q", "weight_scale", "weight_w4b", "weight_w4s",
+                  "weight_q4", "weight_gs")
 
     def __init__(self, in_features: int, out_features: int, device=None,
                  dtype=None):
@@ -149,9 +154,15 @@ class Linear(nn.Module):
             group_size=group_size)
         self.weight = None
 
+    def quantize_int4_(self, group_size: int = 128) -> None:
+        self.weight_q4, self.weight_gs = quantize_weight_int4(
+            self.weight.detach().t(), group_size=group_size)
+        self.weight = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return matmul_any(x, self.weight, self.weight_q, self.weight_scale,
-                          self.weight_w4b, self.weight_w4s)
+                          self.weight_w4b, self.weight_w4s, self.weight_q4,
+                          self.weight_gs)
 
 
 class RMSNorm(nn.Module):

@@ -1,8 +1,8 @@
 """W8A16 weights: int8 weight matrices with per-output-channel scales.
 
-PyTorch counterpart of `llamagen_tpu/ops/quant_matmul.py`: the bf16, int8
-and W4 (`ops/w4_matmul.py`) branches of `matmul_any`; the XLA-only
-`int4_matmul` storage mode is not ported. On the TPU, XLA fuses the
+PyTorch counterpart of `llamagen_tpu/ops/quant_matmul.py`: the bf16, int8,
+W4 (`ops/w4_matmul.py`) and int4 storage (`bits=4`) branches of
+`matmul_any`. On the TPU, XLA fuses the
 int8 -> bf16 convert into the matmul's weight read. PyTorch has no such
 fusion, so here every W8A16 product goes through the hand-written CUDA
 kernel `csrc/int8_matmul.cu` (`int8_matmul`); the dequantised matrix never
@@ -13,6 +13,13 @@ Layouts follow the JAX package: `quantize_weight` takes `[..., K, N]`
 `models/gpt.py` keeps `weight_q [K, N]` and `weight_scale [N]` in place of
 its `weight [N, K]`, so a quantised state dict carries the `_q` / `_scale`
 keys of the JAX parameter tree.
+
+The int4 storage mode (`quantize_gpt_params(..., bits=4)`, JAX's
+`quantize_weight_int4` / `unpack_int4` / `int4_matmul`) is plain XLA in
+JAX and plain PyTorch here: nibble pairs along N (`weight_q4 [K, N/2]`
+int8, the low nibble at the even index) with group scales along K
+(`weight_gs [G, N]`), the `_q4` / `_gs` keys of the JAX tree. JAX keeps it
+as a storage mode, not a serving path, and so does the port.
 """
 
 from __future__ import annotations
@@ -163,14 +170,78 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def _pick_group(k: int, requested: int) -> int:
+    """The largest divisor of K that is at most the requested group size
+    (JAX `_pick_group`)."""
+    g = min(requested, k)
+    while k % g:
+        g -= 1
+    return g
+
+
+def quantize_weight_int4(w: torch.Tensor, group_size: int = 128
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., K, N] -> (packed int8 [..., K, N/2], group scales f32
+    [..., G, N]), G = K / `_pick_group(K, group_size)`.
+
+    Bit for bit the JAX `quantize_weight_int4`: scale = max|w| / 7 + 1e-12
+    over each group of K rows, round half to even, clip to [-8, 7]; two
+    levels a byte along N, the even index in the low nibble. Both
+    divisions divide by tensors (PyTorch's CUDA division by a Python
+    scalar multiplies by the reciprocal), so the card's levels are the
+    CPU's."""
+    *lead, k, n = w.shape
+    if n % 2:
+        raise ValueError(f"N={n} must be even for int4 packing")
+    g = _pick_group(k, group_size)
+    w32 = w.float().reshape(*lead, k // g, g, n)
+    amax = w32.abs().amax(dim=-2)
+    scale = amax / torch.full_like(amax, 7.0) + 1e-12       # [..., G, N]
+    q = torch.clamp(torch.round(w32 / scale.unsqueeze(-2)), -8, 7)
+    q = q.to(torch.int8).reshape(*lead, k, n // 2, 2)
+    return (q[..., 0] & 0x0F) | (q[..., 1] << 4), scale
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[..., K, N/2] int8 nibble pairs -> [..., K, N] int8 levels in
+    [-8, 7] (JAX `unpack_int4`'s int4 values; PyTorch has no int4 type)."""
+    low = ((packed & 0x0F) ^ 8) - 8      # sign-extend the low nibble
+    high = packed >> 4                   # arithmetic shift: the high one
+    return torch.stack([low, high], dim=-1).reshape(
+        *packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
+                gscale: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ dequant-int4(packed [K, N/2], gscale [G, N]) ->
+    [..., N] in x's dtype, as JAX computes it: one group, the product in
+    x's dtype with the scale after; G groups, f32 partial products over
+    each group's K rows, the group scales on the [..., G, N] partials,
+    their sum, one cast (the dequantised matrix is never formed)."""
+    k = x.shape[-1]
+    n = packed.shape[-1] * 2
+    groups = gscale.shape[-2]
+    if groups == 1:
+        out = x @ unpack_int4(packed).to(x.dtype)
+        return out * gscale[0].to(out.dtype)
+    wq = unpack_int4(packed).float().reshape(groups, k // groups, n)
+    xg = x.float().reshape(*x.shape[:-1], groups, k // groups)
+    part = torch.einsum("...gk,gkn->...gn", xg, wq)
+    return torch.einsum("...gn,gn->...n", part,
+                        gscale.float()).to(x.dtype)
+
+
 def matmul_any(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                weight_q: Optional[torch.Tensor] = None,
                weight_scale: Optional[torch.Tensor] = None,
                w4_blocks: Optional[torch.Tensor] = None,
-               w4_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+               w4_scales: Optional[torch.Tensor] = None,
+               weight_q4: Optional[torch.Tensor] = None,
+               weight_gs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., K] @ W -> [..., N] for a bf16/f32 `weight [N, K]` (nn.Linear
-    layout), a W8A16 `weight_q [K, N]` + `weight_scale [N]`, or W4
-    `w4_blocks` + `w4_scales` (`ops/w4_matmul.py` layout).
+    layout), a W8A16 `weight_q [K, N]` + `weight_scale [N]`, W4
+    `w4_blocks` + `w4_scales` (`ops/w4_matmul.py` layout), or int4
+    storage `weight_q4 [K, N/2]` + `weight_gs [G, N]` (`int4_matmul`).
 
     The W8A16 branch flattens x to rank 2 and runs `int8_matmul`. The W4
     branch runs `w4_matmul` on rank-2 x only (every decode-stack matmul);
@@ -182,26 +253,40 @@ def matmul_any(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
         if x.dim() == 2:
             return w4_matmul(x, w4_blocks, w4_scales)
         return x @ w4_dequant(w4_blocks, w4_scales).to(x.dtype)
+    if weight_q4 is not None:
+        return int4_matmul(x, weight_q4, weight_gs)
     if weight_q is None:
         return x @ weight.to(x.dtype).t()
     out = int8_matmul(x.reshape(-1, x.shape[-1]), weight_q, weight_scale)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
-def quantize_gpt_params(model: nn.Module,
-                        quantize_head: bool = False) -> nn.Module:
-    """Quantise a `models.gpt.Transformer`'s layer matmuls to W8A16 in place.
+def quantize_gpt_params(model: nn.Module, quantize_head: bool = False,
+                        bits: int = 8, group_size: int = 128) -> nn.Module:
+    """Quantise a `models.gpt.Transformer`'s layer matmuls in place (JAX
+    `quantize_gpt_params`): bits 8, W8A16 (int8 + per-channel scales, the
+    int8 kernel); bits 4, int4 storage (`quantize_weight_int4` with groups
+    of `group_size` K rows, `int4_matmul`).
 
-    wqkv, wo, w1, w2 and w3 of every layer become int8 + per-channel
-    scales; norms, embeddings and the conditioning stay as they are. The
-    output head stays in its dtype unless `quantize_head` (as in JAX,
+    wqkv, wo, w1, w2 and w3 of every layer are quantised; norms,
+    embeddings and the conditioning stay as they are. The output head
+    stays in its dtype unless `quantize_head` (as in JAX,
     quant_matmul.py:180-209). Returns the model.
     """
+    if bits not in (4, 8):
+        raise ValueError(f"bits {bits}: 8 (W8A16) or 4 (int4 storage)")
+
+    def quantize(lin):
+        if bits == 4:
+            lin.quantize_int4_(group_size)
+        else:
+            lin.quantize_()
+
     for layer in model.layers:
         for lin in (layer.attention.wqkv, layer.attention.wo,
                     layer.feed_forward.w1, layer.feed_forward.w2,
                     layer.feed_forward.w3):
-            lin.quantize_()
+            quantize(lin)
     if quantize_head:
-        model.output.quantize_()
+        quantize(model.output)
     return model

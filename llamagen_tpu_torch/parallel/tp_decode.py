@@ -24,6 +24,11 @@ seeded alike. The TP decode step is `gpt.decode_step` on the shard (JAX
 kv_heads=model.n_local_kv_heads)`: one token on the rank's local heads
 through K1.
 
+Checkpoints: `tp_pieces` says where each piece of a rank's shard (and of
+its Adam moments and EMA) lies in the whole tensor, in upstream's layout,
+so that `utils/checkpoint.py` saves and loads a TP state without a
+gather and at any other tp.
+
 Per-shard W4 (`quantize_gpt_params_w4k_tp`): the W4 block layout does not
 slice along heads or the hidden dim, so each rank's shard is packed by
 `pack_w4` on its own; a key whose shard width has no W4 block width (or
@@ -33,7 +38,7 @@ alignment asserts are the TPU's and are not ported.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -115,6 +120,55 @@ def is_tp_sharded(name: str) -> bool:
         f".{k}.weight" for k in COL_KEYS + ROW_KEYS))
 
 
+class Piece(NamedTuple):
+    """Rows `rows` (dim 0) of a rank's local tensor, which lie at `offsets`
+    in the whole tensor and span `sizes` there (the local tensor's other
+    dims whole); a 0-d tensor has one piece with `rows` None."""
+    rows: Optional[slice]
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+
+
+def tp_pieces(name: str, cfg: GPTConfig, tp: int, rank: int,
+              shape: Sequence[int]) -> Tuple[Tuple[int, ...], List[Piece]]:
+    """(the whole tensor's shape, the pieces of TP rank `rank`'s local
+    tensor of `shape`) for the `gpt.Transformer` parameter `name` (its
+    state-dict name, so its Adam moments and EMA too), in upstream's
+    layout (wqkv in [Q | K | V]), as `shard_tp_params` cut it:
+      - the head and the column-parallel w1 / w3: one block of rows;
+      - the row-parallel wo / w2: one block of columns;
+      - wqkv: three blocks of rows (`_head_major`): the rank's q heads at
+        r * qs / tp, its kv heads of K at qs + r * ks / tp and of V at
+        qs + ks + r * ks / tp (ks = kv_heads * head_dim);
+      - everything `is_tp_sharded` leaves whole: the tensor itself.
+    Pure: no process group, no data."""
+    shape = tuple(shape)
+    if not shape:
+        return shape, [Piece(None, (), ())]
+    n = shape[0]
+    if tp == 1 or not is_tp_sharded(name):
+        return shape, [Piece(slice(0, n), (0,) * len(shape), shape)]
+    rest = shape[1:]
+    zeros = (0,) * len(rest)
+    if name.endswith((".wo.weight", ".w2.weight")):
+        k = shape[1]
+        return (n, k * tp), [Piece(slice(0, n), (0, rank * k), shape)]
+    if not name.endswith(".wqkv.weight"):
+        return (n * tp,) + rest, [Piece(slice(0, n), (rank * n,) + zeros,
+                                        shape)]
+    qs = cfg.n_head * cfg.head_dim
+    ks = cfg.kv_heads * cfg.head_dim
+    hq, hk = qs // tp, ks // tp
+    if n != hq + 2 * hk:
+        raise ValueError(f"{name}: {n} local rows, not {hq + 2 * hk}")
+    pieces = [Piece(slice(start, start + rows), (off,) + zeros,
+                    (rows,) + rest)
+              for start, rows, off in ((0, hq, rank * hq),
+                                       (hq, hk, qs + rank * hk),
+                                       (hq + hk, hk, qs + ks + rank * hk))]
+    return (qs + 2 * ks,) + rest, pieces
+
+
 def _take(t: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:
     n = t.shape[dim] // tp
     return t.narrow(dim, rank * n, n).contiguous()
@@ -169,6 +223,11 @@ def shard_tp_params(model: nn.Module, rank: int, tp: int,
     if group is not None and dist.get_world_size(group) != tp:
         raise ValueError(f"a group of {dist.get_world_size(group)} ranks "
                          f"for tp {tp}")
+    if any(lin.weight_q4 is not None for lin in
+           [lin for _, _, lin in _linears(model)] + [model.output]):
+        raise ValueError("an int4 storage (bits=4) model has no TP layout "
+                         "(JAX's tp_decode has no rule for `_q4` keys): "
+                         "shard the bf16 / f32 model, or W8A16 / W4")
     packed = model.tp_packed
     if packed not in (None, tp):
         raise ValueError(f"W4 packed for tp {packed}, sharded for tp {tp}")
@@ -299,5 +358,6 @@ def unshard_w4_tp_for_reference(model: nn.Module, tp: int) -> nn.Module:
 
 
 __all__: List[str] = [
-    "shard_tp_params", "whole_tp_state", "is_tp_sharded",
+    "shard_tp_params", "whole_tp_state", "is_tp_sharded", "tp_pieces",
+    "Piece",
     "quantize_gpt_params_w4k_tp", "unshard_w4_tp_for_reference"]

@@ -76,7 +76,10 @@ def global_norm(tensors: List[torch.Tensor],
     groups = [_shard_groups(t) for t in tensors]
     sharded = [i for i, g in enumerate(groups) if g]
     if sharded:
-        if len({groups[i] for i in sharded}) > 1:
+        # by their ranks: DTensor's cached sharding may hand a gradient the
+        # mesh of an earlier trainer in this process, equal but not the same
+        if len({tuple(map(tuple, map(dist.get_process_group_ranks,
+                                     groups[i]))) for i in sharded}) > 1:
             raise ValueError("the tensors are sharded over different groups")
         sq = torch.stack([norms[i] for i in sharded]) ** 2
         for group in groups[sharded[0]]:
@@ -103,6 +106,10 @@ class Optimizer:
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self.params = [p for _, p in named]
+        # the parameters' names in the order of the optimizer's indices
+        # (its state_dict's "state" keys): the decayed group, then the rest
+        self.names = ([n for n, _ in named if decay_mask(n)]
+                      + [n for n, _ in named if not decay_mask(n)])
         self.tp_group = getattr(model, "tp_group", None)
         self.tp_sharded = [is_tp_sharded(n) for n, _ in named]
         self.lr, self.warmup_steps = lr, warmup_steps

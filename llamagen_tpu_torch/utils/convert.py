@@ -64,11 +64,13 @@ def _quantized(sd: StateDict, name: str, p: Mapping[str, Any], key: str,
                i: Optional[int] = None) -> bool:
     """A quantised JAX entry `key` (W8A16 `{key}_q` [K, N] int8 +
     `{key}_scale` [N]; W4 `{key}_w4b` + `{key}_w4s` in the kernel layout;
-    per layer when `i` is given) -> `{name}.weight_q` / `weight_scale` /
-    `weight_w4b` / `weight_w4s`, which hold the same layouts. False when
-    `key` is not quantised."""
+    int4 storage `{key}_q4` [K, N/2] + `{key}_gs` [G, N]; per layer when
+    `i` is given) -> `{name}.weight_q` / `weight_scale` / `weight_w4b` /
+    `weight_w4s` / `weight_q4` / `weight_gs`, which hold the same layouts.
+    False when `key` is not quantised."""
     for jax_keys, attrs in ((("_q", "_scale"), ("q", "scale")),
-                            (("_w4b", "_w4s"), ("w4b", "w4s"))):
+                            (("_w4b", "_w4s"), ("w4b", "w4s")),
+                            (("_q4", "_gs"), ("q4", "gs"))):
         if key + jax_keys[0] not in p:
             continue
         for sfx, attr in zip(jax_keys, attrs):
@@ -83,8 +85,9 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
     """JAX `models.gpt` params (numpy) -> port `Transformer` state dict
     (c2i: the class table; t2i: the caption MLP and `uncond_embedding`,
     JAX `utils/convert.py:195-203` inverted). Quantised layer matmuls
-    (W8A16 `_q` / `_scale`, W4 `_w4b` / `_w4s`, stacked per layer in JAX)
-    and an int8 head (`output_q` / `output_scale`) carry over as they are:
+    (W8A16 `_q` / `_scale`, W4 `_w4b` / `_w4s`, int4 storage `_q4` /
+    `_gs`, stacked per layer in JAX) and a quantised head (`output_q` /
+    `output_scale`, `output_q4` / `output_gs`) carry over as they are:
     a quantised `Linear` of the port keeps JAX's layouts. Load such a dict
     after `cli/common.py::shape_quantized_linears`."""
     layers = params["layers"]

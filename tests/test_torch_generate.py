@@ -124,3 +124,28 @@ def test_sample_distribution_chi_square():
     assert pval > 1e-3, pval
     greedy = sampling.sample(logits, sample_logits=False)
     assert greedy.item() == 5
+
+
+@pytest.mark.parametrize("head", [False, True], ids=["layers", "head_too"])
+def test_greedy_tokens_match_jax_int4_storage(head):
+    """`quantize_gpt_params(..., bits=4)` (group 128): JAX's `_q4` / `_gs`
+    tree carried by `gpt_state_dict_from_jax` equals the port's own
+    quantisation bit for bit, and greedy f32 tokens equal JAX's."""
+    from llamagen_tpu_torch.cli.common import shape_quantized_linears
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.utils.convert import gpt_state_dict_from_jax
+    params, model = make_pair(NANO)
+    jq = jquantize(params, quantize_head=head, bits=4)
+    sd = gpt_state_dict_from_jax(jax.tree.map(np.asarray, jq), NANO)
+    assert any(k.endswith("weight_q4") for k in sd)
+    assert ("output.weight_q4" in sd) == head
+    quantize_gpt_params(model, quantize_head=head, bits=4)
+    own = model.state_dict()
+    assert own.keys() == sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(own[k], v), k
+    loaded = gpt.Transformer(NANO)
+    shape_quantized_linears(loaded, sd)
+    loaded.load_state_dict(sd)
+    tok, jtok = _both(jq, loaded.eval(), cfg_scale=2.0)
+    np.testing.assert_array_equal(tok, jtok)

@@ -247,3 +247,60 @@ def test_cuda_kernel_raises_on_what_it_does_not_take(cuda):
         int8_matmul(x.to(torch.int8),
                     torch.zeros(64, 32, dtype=torch.int8, device=cuda),
                     torch.ones(32, device=cuda))
+
+
+# --- int4 storage (bits=4): plain PyTorch against JAX's plain XLA ----------
+
+
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["2d", "layers"])
+@pytest.mark.parametrize("k,n,group", [(256, 64, 128), (96, 32, 128),
+                                       (3200, 64, 128)],
+                         ids=["k256", "k96_group96", "k3200_gpt3b"])
+def test_quantize_weight_int4_bit_exact(k, n, group, lead):
+    """Packed bytes and group scales equal JAX's `quantize_weight_int4` bit
+    for bit (K 96: one group of 96; K 3200: GPT-3B's width, 25 groups),
+    with and without a leading layer axis; `unpack_int4` gives JAX's
+    levels."""
+    rng = np.random.RandomState(k + len(lead))
+    w = (rng.randn(*lead, k, n) * 0.05).astype(np.float32)
+    jp, js = jqm.quantize_weight_int4(jnp.asarray(w), group_size=group)
+    p, s = qm.quantize_weight_int4(torch.tensor(w), group_size=group)
+    assert p.dtype == torch.int8 and s.shape == (*lead, k // qm._pick_group(
+        k, group), n)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    levels = np.asarray(jqm.unpack_int4(jp).astype(jnp.int8))
+    np.testing.assert_array_equal(qm.unpack_int4(p).numpy(), levels)
+
+
+@pytest.mark.parametrize("x_shape", [(8, 256), (2, 5, 256)],
+                         ids=["2d", "3d"])
+@pytest.mark.parametrize("group", [256, 64], ids=["one_group", "groups"])
+def test_int4_matmul_matches_jax(x_shape, group):
+    """`int4_matmul` (and `matmul_any`'s int4 branch) on 2-D and 3-D
+    activations within 1e-6 of the largest |value| of JAX's: one group
+    (the scale after the product) and 4 groups (f32 partials per group)."""
+    rng = np.random.RandomState(group)
+    x = rng.randn(*x_shape).astype(np.float32)
+    w = (rng.randn(256, 128) * 0.02).astype(np.float32)
+    jp, js = jqm.quantize_weight_int4(jnp.asarray(w), group_size=group)
+    ref = np.asarray(jqm.int4_matmul(jnp.asarray(x), jp, js))
+    p, s = torch.tensor(np.asarray(jp)), torch.tensor(np.asarray(js))
+    for got in (qm.int4_matmul(torch.tensor(x), p, s),
+                matmul_any(torch.tensor(x), weight_q4=p, weight_gs=s)):
+        assert got.shape == ref.shape
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= 1e-6 * np.abs(ref).max(), err
+
+
+def test_int4_model_refuses_a_tp_shard():
+    """JAX's tp_decode has no rule for `_q4` keys: `shard_tp_params`
+    refuses an int4 model before touching it."""
+    from llamagen_tpu_torch.config import gpt_config
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.parallel.tp_decode import shard_tp_params
+    model = qm.quantize_gpt_params(gpt.Transformer(gpt_config(
+        "GPT-nano", block_size=16)), bits=4)
+    with pytest.raises(ValueError, match="int4 storage"):
+        shard_tp_params(model, 0, 2)
+    assert model.tp_size == 1 and model.layers[0].attention.n_head == 2

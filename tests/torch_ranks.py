@@ -7,6 +7,7 @@ returns every rank's result. A rank that fails fails the launch; a launch
 that outlives its timeout is killed and fails.
 """
 
+import contextlib
 import os
 import socket
 import sys
@@ -72,23 +73,56 @@ def launch(name, world, *args, timeout=240, **kwargs):
 
 
 def _full_state(state):
-    """The whole parameters and EMA of a (sharded) GPT state, by name (TP
-    shards gathered, wqkv in [Q | K | V])."""
+    """The whole parameters, EMA and both Adam moments of a (sharded) GPT
+    state, by name (TP shards gathered, wqkv in [Q | K | V]), and its
+    step."""
     from torch.distributed.checkpoint.state_dict import (StateDictOptions,
                                                          get_model_state_dict)
     from torch.distributed.tensor import DTensor
     from llamagen_tpu_torch.parallel.tp_decode import whole_tp_state
+
+    def whole(d):
+        d = {n: t.full_tensor() if isinstance(t, DTensor) else t
+             for n, t in d.items()}
+        if state.model.tp_size > 1:
+            d = whole_tp_state(state.model, d)
+        return {n: t.detach().clone() for n, t in d.items()}
+
     params = get_model_state_dict(state.model, options=StateDictOptions(
         full_state_dict=True))
-    ema = None
-    if state.ema is not None:
-        ema = {n: e.full_tensor() if isinstance(e, DTensor) else e
-               for n, e in state.ema.items()}
     if state.model.tp_size > 1:
         params = whole_tp_state(state.model, params)
-        ema = None if ema is None else whole_tp_state(state.model, ema)
-    return ({n: p.detach().clone() for n, p in params.items()},
-            None if ema is None else {n: e.clone() for n, e in ema.items()})
+    name = {id(p): n for n, p in state.model.named_parameters()}
+    opt = state.optimizer.opt.state
+    return {"params": {n: p.detach().clone() for n, p in params.items()},
+            "ema": None if state.ema is None else whole(state.ema),
+            **{k: whole({name[id(p)]: s[k] for p, s in opt.items()})
+               for k in ("exp_avg", "exp_avg_sq")},
+            "step": state.step}
+
+
+@contextlib.contextmanager
+def no_gather():
+    """Make every gather of a whole sharded tensor raise: the TP gathers
+    (`gather_last`, `whole_tp_state`) and DTensor's `full_tensor`."""
+    from torch.distributed.tensor import DTensor
+    from llamagen_tpu_torch.parallel import collectives, tp_decode
+    from llamagen_tpu_torch.utils import checkpoint
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a whole sharded tensor was gathered")
+
+    where = [(collectives, "gather_last"), (tp_decode, "gather_last"),
+             (tp_decode, "whole_tp_state"), (checkpoint, "whole_tp_state"),
+             (DTensor, "full_tensor")]
+    saved = [getattr(obj, attr) for obj, attr in where]
+    for obj, attr in where:
+        setattr(obj, attr, refuse)
+    try:
+        yield
+    finally:
+        for (obj, attr), fn in zip(where, saved):
+            setattr(obj, attr, fn)
 
 
 # --- scenarios ---------------------------------------------------------------
@@ -119,7 +153,7 @@ def gpt_steps(cfg, batches, dp=1, fsdp=-1, seed=0, dropout_seed=0,
         state, m = step(state, shard_batch(batch, mesh=mesh), dropout_seed)
         out["loss"].append(m["loss"].item())
         out["grad_norm"].append(m["grad_norm"].item())
-    out["params"], out["ema"] = _full_state(state)
+    out.update(_full_state(state))
     return out
 
 
@@ -151,30 +185,150 @@ def vq_steps(cfg, loss_cfg, batches, lpips_sd=None, **kw):
     return out
 
 
+def _gpt_trainer(cfg, mesh, vq_cfg=None, vq_weights=None, **kw):
+    """(state, step, batch type) of the c2i trainer, or of the t2i one
+    given a VQ."""
+    if vq_cfg is None:
+        return (*c2i.build_trainer(cfg, "cpu", mesh=mesh, **kw), c2i.Batch)
+    from llamagen_tpu_torch.models.vq import VQModel
+    vq_model = VQModel(vq_cfg, encoder=True)
+    vq_model.load_state_dict(vq_weights)
+    return (*t2i.build_trainer(cfg, vq_model, "cpu", mesh=mesh, **kw),
+            t2i.T2IBatch)
+
+
 def checkpointed(cfg, batches, ckpt_dir, dp=1, fsdp=-1, save_at=None,
-                 resume=False, export=None, tp=1, **kw):
-    """GPT steps with a DCP save after `save_at` steps, or a resume from
-    `ckpt_dir` before the steps; `export`: a whole-model file written at
-    the end. Returns the losses, the step count and the whole state."""
+                 resume=False, export=None, tp=1, resume_at=None,
+                 vq_cfg=None, vq_weights=None, **kw):
+    """GPT steps (t2i given a VQ) at (dp, fsdp, tp) with a save after
+    `save_at` steps, or a resume from `ckpt_dir` before the steps (the
+    save and the restore run under `no_gather`); `export`: a whole-model
+    file written at the end. Returns the losses, grad norms, the step
+    count and the whole state, the whole state just after the save
+    ("saved") or the restore ("loaded"), and with `resume_at` (dp, fsdp,
+    tp) also "resumed": a second run at that layout, resumed from the
+    save, over the steps after it."""
     from llamagen_tpu_torch.utils import checkpoint
     assert distributed.init_distributed("cpu")
     mesh = make_mesh(dp, fsdp, tp, "cpu")
-    state, step = c2i.build_trainer(cfg, "cpu", mesh=mesh, **kw)
+    state, step, make = _gpt_trainer(cfg, mesh, vq_cfg, vq_weights, **kw)
+    out = {"loss": [], "grad_norm": []}
     if resume:
-        got, state = checkpoint.restore_latest(ckpt_dir, state)
+        with no_gather():
+            got, state = checkpoint.restore_latest(ckpt_dir, state)
         assert got is not None
-    losses = []
+        out["loaded"] = _full_state(state)
     for b in batches:
-        batch = c2i.Batch(*(torch.from_numpy(x) for x in b))
+        batch = make(*(torch.from_numpy(x) for x in b))
         state, m = step(state, shard_batch(batch, mesh=mesh), 5)
-        losses.append(m["loss"].item())
+        out["loss"].append(m["loss"].item())
+        out["grad_norm"].append(m["grad_norm"].item())
         if state.step == save_at:
-            checkpoint.save_step(ckpt_dir, state.step, state)
+            with no_gather():
+                checkpoint.save_step(ckpt_dir, state.step, state)
+            out["saved"] = _full_state(state)
     if export:
         checkpoint.save_full_model(export, state)
-    params, ema = _full_state(state)
-    return {"loss": losses, "step": state.step, "params": params,
-            "ema": ema, "opt_steps": _adam_steps(state)}
+    out.update(_full_state(state), opt_steps=_adam_steps(state))
+    if resume_at is not None:
+        r_dp, r_fsdp, r_tp = resume_at
+        out["resumed"] = checkpointed(
+            cfg, batches[save_at:], ckpt_dir, r_dp, r_fsdp, resume=True,
+            tp=r_tp, vq_cfg=vq_cfg, vq_weights=vq_weights, **kw)
+    return out
+
+
+def runs(jobs):
+    """Each job (scenario name, kwargs) of this module in turn, in one
+    process group (each at its own mesh over every rank)."""
+    return [globals()[name](**kw) for name, kw in jobs]
+
+
+def tp_layout(cases):
+    """Each case (cfg, whole state dict, tp): this rank's TP shard of the
+    model in the group of the `tp` adjacent ranks it belongs to, its local
+    state dict, the pieces `tp_pieces` gives each entry and
+    `whole_tp_state` of the shard."""
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.parallel.tp_decode import (shard_tp_params,
+                                                       tp_pieces,
+                                                       whole_tp_state)
+    assert distributed.init_distributed("cpu")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for cfg, sd, tp in cases:
+        groups = [dist.new_group(list(range(g, g + tp)))
+                  for g in range(0, world, tp)]
+        model = gpt.Transformer(cfg)
+        model.load_state_dict(sd)
+        shard_tp_params(model, rank % tp, tp, groups[rank // tp])
+        local = {k: v.clone() for k, v in model.state_dict().items()}
+        out.append({"local": local,
+                    "pieces": {k: tp_pieces(k, cfg, tp, rank % tp, v.shape)
+                               for k, v in local.items()},
+                    "whole": whole_tp_state(model, model.state_dict())})
+    return out
+
+
+def refused_layout(argv):
+    """`cli/train_c2i.py` with `argv` (a layout the model cannot take and a
+    `--resume`): the error it raises and whether any checkpoint was read
+    first."""
+    from llamagen_tpu_torch.cli import train_c2i
+    from llamagen_tpu_torch.utils import checkpoint
+    loads = []
+    restore = checkpoint.restore_latest
+    checkpoint.restore_latest = lambda *a, **k: loads.append(a) or restore(
+        *a, **k)
+    try:
+        train_c2i.main(argv)
+    except ValueError as e:
+        return {"error": str(e), "loads": len(loads)}
+    finally:
+        checkpoint.restore_latest = restore
+    return {"error": None, "loads": len(loads)}
+
+
+def vq_checkpointed(cfg, loss_cfg, batches, ckpt_dir, lpips_sd=None, **kw):
+    """A data-parallel VQ-GAN run resumed from `ckpt_dir` (under
+    `no_gather`): the whole state just after the restore, then per step
+    the metrics, and the parameters after the steps."""
+    from llamagen_tpu_torch.models import lpips as lpips_lib
+    from llamagen_tpu_torch.utils import checkpoint
+    assert distributed.init_distributed("cpu")
+    mesh = make_mesh(-1, 1, 1, "cpu")
+    lp = None
+    if lpips_sd is not None:
+        lp = lpips_lib.LPIPS()
+        lp.load_state_dict(lpips_sd)
+    state, step = vqt.build_trainer(cfg, loss_cfg, torch.device("cpu"),
+                                    lpips=lp, mesh=mesh, **kw)
+    with no_gather():
+        got, state = checkpoint.restore_latest(ckpt_dir, state)
+    out = {"loaded": vq_whole_state(state), "metrics": []}
+    for imgs in batches:
+        state, m = step(state, shard_batch(torch.from_numpy(imgs)))
+        out["metrics"].append({k: v.item() for k, v in m.items()})
+    out["window"] = state.usage_window.clone()
+    out["params"] = {n: p.detach().clone()
+                     for n, p in state.model.named_parameters()}
+    return out
+
+
+def vq_whole_state(state):
+    """A VQ-GAN state's parameters, Adam moments (both models, by name),
+    EMA, usage window and step."""
+    out = {"step": state.step, "window": state.usage_window.clone(),
+           "ema": {n: e.clone() for n, e in (state.ema or {}).items()}}
+    for key, model, opt in (("vq", state.model, state.optimizer),
+                            ("disc", state.disc, state.disc_optimizer)):
+        name = {id(p): n for n, p in model.named_parameters()}
+        out[key] = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"{key}_{k}"] = {name[id(p)]: s[k].clone()
+                                 for p, s in opt.opt.state.items()}
+    return out
 
 
 def _adam_steps(state):
