@@ -1826,7 +1826,7 @@ def run_t2i_engine(dev):
     st = eng.stats()
     n_layer = model.cfg.n_layer
     per = 5 * n_layer + 1
-    # step_fn(state, *admission, n_steps, filters_off)
+    # step_fn(state, n_steps, filters_off)
     chunk_steps = [args[-2] for args, _, _ in per_chunk]
     k1_adm = sum(a for _, a, _ in per_admission)
     k2_adm = sum(b for _, _, b in per_admission)
@@ -4263,8 +4263,7 @@ def tp_engine_run(dev, mesh, model, label, cache_dtype, n_requests,
     counts, steps = read_counters(), eng.steps_run
     result = np.stack([r.result for r in reqs])
     state = eng.state
-    wall, busy = device_busy(lambda: eng.step_fn(state, None, None, None, 8),
-                             8)
+    wall, busy = device_busy(lambda: eng.step_fn(state, 8), 8)
     out = {"counts": counts, "steps": steps, "s": secs,
            "img_s": n_requests / secs, "ms_step": 1e3 * secs / steps,
            "busy_wall_ms": wall, "busy_ms": busy,

@@ -57,6 +57,7 @@ from llamagen_tpu_torch.models import gpt
 from llamagen_tpu_torch.ops import sampling
 from llamagen_tpu_torch.ops.attention import TAIL, quantize_rows
 from llamagen_tpu_torch.ops.generate import build_cfg_batch
+from llamagen_tpu_torch.utils import profiling
 
 
 class SlotSampling(NamedTuple):
@@ -226,28 +227,29 @@ def apply_admission(state: EngineState, admit_mask: torch.Tensor,
 def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
                      chunk: int = 64,
                      compute_dtype: torch.dtype = torch.bfloat16):
-    """The chunked engine step: engine_step(state, admit_mask [P] bool,
-    admit_labels [P], admit_sp SlotSampling, n_steps, filters_off) admits
-    (when `admit_mask` is not None) and runs n_steps <= chunk decode steps
-    in place (JAX clamps n_steps to the chunk; here a larger one raises,
-    since the caller's mirror of the slots would go wrong). No step reads
-    the device from the host."""
+    """The chunked engine step: engine_step(state, n_steps, filters_off)
+    runs n_steps <= chunk decode steps in place (JAX clamps n_steps to the
+    chunk; here a larger one raises, since the caller's mirror of the
+    slots would go wrong; JAX's admission inside the step is the caller's
+    `apply_admission` before it). No step reads the device from the
+    host."""
 
     @torch.no_grad()
-    def engine_step(state: EngineState, admit_mask: Optional[torch.Tensor],
-                    admit_labels: Optional[torch.Tensor],
-                    admit_sp: Optional[SlotSampling], n_steps: int,
+    def engine_step(state: EngineState, n_steps: int,
                     filters_off: bool = False) -> EngineState:
         if n_steps > chunk:
             raise ValueError(f"{n_steps} steps, more than the chunk {chunk}")
-        if admit_mask is not None:
-            apply_admission(state, admit_mask, admit_labels, admit_sp)
+        rows = 2 * state.pos.shape[0]
         for _ in range(n_steps):
-            emb, pad2 = build_step_embeddings(model, state, compute_dtype)
-            pos2 = torch.cat([state.pos, state.pos])
-            logits = gpt.decode_step_slots(model, emb, pos2, state.cache,
-                                           compute_dtype, prefix_pad=pad2)
-            sample_and_advance(state, logits, max_new_tokens, filters_off)
+            with profiling.span("engine.decode", rows=rows):
+                emb, pad2 = build_step_embeddings(model, state,
+                                                  compute_dtype)
+                pos2 = torch.cat([state.pos, state.pos])
+                logits = gpt.decode_step_slots(model, emb, pos2, state.cache,
+                                               compute_dtype,
+                                               prefix_pad=pad2)
+                sample_and_advance(state, logits, max_new_tokens,
+                                   filters_off)
         return state
 
     return engine_step
@@ -375,7 +377,9 @@ class Request:
     result: Optional[np.ndarray] = None
     submitted_at: float = field(default_factory=time.time)
     admitted_at: Optional[float] = None      # host time of admission
-    first_token_at: Optional[float] = None   # TTFT (interpolated, _harvest)
+    # time.time() at which the first token was sampled, as observed on the
+    # device's timeline (ServeEngine) or the host's at admission (SpecEngine)
+    first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
 
 
@@ -465,21 +469,28 @@ class EngineBase:
         n = 2 + len(SlotSampling._fields)  # slot, label, the parameters
         for start in range(0, len(taken), self._abatch):
             grp = taken[start:start + self._abatch]
-            packed = torch.stack([torch.cat([
-                torch.tensor([i, req.label] + req.sp.row()),
-                req.emb_mask.float() if self.t2i else torch.zeros(0)])
-                for i, req in grp])
-            dev = self._to_device(packed)
-            if self.t2i:
-                cond = self._to_device(torch.stack([req.caption
-                                                    for _, req in grp]))
-                masks = dev[:, n:] > 0
-            else:
-                cond, masks = dev[:, 1].long(), None
-            install(dev[:, 0].long(), cond, masks,
-                    SlotSampling(*dev[:, 2:n].t()),
-                    all(req.sp.filters_off for _, req in grp))
+            with profiling.span("engine.admit", pairs=len(grp)):
+                packed = torch.stack([torch.cat([
+                    torch.tensor([i, req.label] + req.sp.row()),
+                    req.emb_mask.float() if self.t2i else torch.zeros(0)])
+                    for i, req in grp])
+                dev = self._to_device(packed)
+                if self.t2i:
+                    cond = self._to_device(torch.stack([req.caption
+                                                        for _, req in grp]))
+                    masks = dev[:, n:] > 0
+                else:
+                    cond, masks = dev[:, 1].long(), None
+                install(dev[:, 0].long(), cond, masks,
+                        SlotSampling(*dev[:, 2:n].t()),
+                        all(req.sp.filters_off for _, req in grp))
+            self._admitted([req for _, req in grp])
             self.admissions += 1
+
+    def _admitted(self, reqs: List["Request"]) -> None:
+        """The work launched so far admitted `reqs` and sampled their first
+        tokens (`ServeEngine` stamps and observes them; the speculative
+        engine stamps its whole admission at once instead)."""
 
     def _finish(self, i: int, tokens: np.ndarray) -> None:
         """Slot i's request is done: its result, latency and TTFT samples
@@ -603,6 +614,8 @@ class ServeEngine(EngineBase):
         self._slot_remaining = np.zeros((num_pairs,), np.int64)
         self._slot_pos = np.zeros((num_pairs,), np.int64)
         self._slot_filters_off = np.ones((num_pairs,), bool)
+        # the first-token events of the running requests, by request id
+        self._first_events: Dict[int, torch.cuda.Event] = {}
         self.steps_run = 0  # decode steps since construction (host count)
         self.admissions = 0  # t2i admission prefills (host count)
         if self.t2i:
@@ -639,10 +652,48 @@ class ServeEngine(EngineBase):
 
         self._admit_grouped(taken, install)
 
+    def reset_stats(self) -> None:
+        """`EngineBase.reset_stats`; on the card also the anchor that puts
+        the first-token events on the host clock: an event recorded on an
+        idle stream (after a sync) beside time.time()."""
+        super().reset_stats()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self._anchor = self._event()
+            self._anchor_at = time.time()
+
+    def _event(self) -> torch.cuda.Event:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _admitted(self, reqs: List[Request]) -> None:
+        """A t2i admission group's launches are issued: its requests are
+        admitted now, and their first tokens observed behind it."""
+        now = time.time()
+        for req in reqs:
+            req.admitted_at = now
+        self._first_token(reqs)
+
+    def _first_token(self, reqs: List[Request]) -> None:
+        """The work launched so far sampled the first token of `reqs`: on
+        the card an event behind it (`_harvest` reads it against the
+        anchor), on the CPU the host clock now."""
+        if self.device.type != "cuda":
+            now = time.time()
+            for req in reqs:
+                req.first_token_at = now
+            return
+        ev = self._event()
+        for req in reqs:
+            self._first_events[req.request_id] = ev
+
     def _admit_and_step(self) -> None:
-        admitted: Dict[int, Request] = {}
-        for i in range(self.num_pairs):
-            if self.slot_request[i] is None and not self.pending.empty():
+        with profiling.span("engine.admit_and_step") as span:
+            admitted: Dict[int, Request] = {}
+            for i in range(self.num_pairs):
+                if self.slot_request[i] is not None or self.pending.empty():
+                    continue
                 req = self.pending.get()
                 self.slot_request[i] = admitted[i] = req
                 # a t2i slot samples its first token at admission and then
@@ -650,50 +701,58 @@ class ServeEngine(EngineBase):
                 self._slot_remaining[i] = self.max_new_tokens - self.t2i
                 self._slot_pos[i] = self.cfg.cls_token_num if self.t2i else 0
                 self._slot_filters_off[i] = req.sp.filters_off
-        if self.t2i and admitted:
-            self._admit_captions(list(admitted.items()))
-        # exact-step chunking: run until the next slot finishes (or the
-        # chunk cap), so no finished slot idles through a fixed chunk
-        busy = self._slot_remaining > 0
-        n_steps = int(min(self._slot_remaining[busy].min(), self.chunk)) \
-            if busy.any() else 0
-        # the highest cache row each slot writes in this chunk: busy slots
-        # advance n_steps, idle ones step at their fixed position
-        last = self._slot_pos + np.where(busy, n_steps - 1, 0)
-        if last.max() >= self.cache_rows:  # K1 would write past the cache
-            raise RuntimeError(f"slot rows {last} outside the cache of "
-                               f"{self.cache_rows}")
-        filters_off = bool(all(self._slot_filters_off[i]
-                               for i in range(self.num_pairs)
-                               if self.slot_request[i] is not None))
-        now = time.time()
-        for req in admitted.values():
-            req.admitted_at = now  # _harvest interpolates the first token
-        adm = (self._admission(admitted) if admitted and not self.t2i
-               else (None, None, None))
-        self.state = self.step_fn(self.state, *adm, n_steps, filters_off)
-        self.steps_run += n_steps
-        self._slot_pos[busy] += n_steps
-        self._slot_remaining[busy] -= n_steps
+            if self.t2i and admitted:  # stamped group by group
+                self._admit_captions(list(admitted.items()))
+            # exact-step chunking: run until the next slot finishes (or the
+            # chunk cap), so no finished slot idles through a fixed chunk
+            busy = self._slot_remaining > 0
+            n_steps = int(min(self._slot_remaining[busy].min(),
+                              self.chunk)) if busy.any() else 0
+            span.count(steps=n_steps)
+            # the highest cache row each slot writes in this chunk: busy
+            # slots advance n_steps, idle ones step at their fixed position
+            last = self._slot_pos + np.where(busy, n_steps - 1, 0)
+            if last.max() >= self.cache_rows:  # K1 would write past it
+                raise RuntimeError(f"slot rows {last} outside the cache of "
+                                   f"{self.cache_rows}")
+            filters_off = bool(all(self._slot_filters_off[i]
+                                   for i in range(self.num_pairs)
+                                   if self.slot_request[i] is not None))
+            first = 0
+            if admitted and not self.t2i:
+                now = time.time()
+                for req in admitted.values():
+                    req.admitted_at = now
+                with profiling.span("engine.admit", pairs=len(admitted)):
+                    apply_admission(self.state, *self._admission(admitted))
+                # the chunk's first step samples their first tokens
+                self.state = self.step_fn(self.state, 1, filters_off)
+                self._first_token(list(admitted.values()))
+                first = 1
+            self.state = self.step_fn(self.state, n_steps - first,
+                                      filters_off)
+            self.steps_run += n_steps
+            self._slot_pos[busy] += n_steps
+            self._slot_remaining[busy] -= n_steps
 
     def _harvest(self) -> None:
-        done = [i for i in range(self.num_pairs)
-                if self.slot_request[i] is not None
-                and self._slot_remaining[i] == 0]
-        if not done:
-            return
-        tokens = self.state.tokens_out.cpu().numpy()  # one read a harvest
-        now = time.time()
-        for i in done:
-            req = self.slot_request[i]
-            # the only wall-clock observations are the admission and this
-            # read: the first token (step 1 of the admission chunk for c2i,
-            # the admission prefill for t2i) is interpolated at the
-            # measured per-step rate
-            per_step = (now - req.admitted_at) \
-                / max(self.max_new_tokens - self.t2i, 1)
-            req.first_token_at = req.admitted_at + per_step
-            self._finish(i, tokens[i])
+        with profiling.span("engine.harvest") as span:
+            done = [i for i in range(self.num_pairs)
+                    if self.slot_request[i] is not None
+                    and self._slot_remaining[i] == 0]
+            span.count(done=len(done))
+            if not done:
+                return
+            with profiling.span("engine.harvest.read"):
+                # one read a harvest: it waits for every step launched
+                tokens = self.state.tokens_out.cpu().numpy()
+            for i in done:
+                req = self.slot_request[i]
+                ev = self._first_events.pop(req.request_id, None)
+                if ev is not None:
+                    req.first_token_at = self._anchor_at \
+                        + self._anchor.elapsed_time(ev) / 1e3
+                self._finish(i, tokens[i])
 
     def _cycle(self) -> None:
         self._admit_and_step()

@@ -393,9 +393,9 @@ class SpecEngine(EngineBase):
         round; slots that finish inside a chunk count their frozen rounds,
         a mild underestimate) and `acceptance_rate` ((tokens per round - 1)
         / k, clipped to [0, 1]). Read on the host: no device read. TTFT is
-        the host clock at admission (`_admit`); `ServeEngine` interpolates
-        its first token from the harvest instead, so the two engines'
-        `ttft_*` are not the same reading."""
+        the host clock at admission (`_admit`); `ServeEngine` observes
+        when the device sampled the first token instead, so the two
+        engines' `ttft_*` are not the same reading."""
         tpr = (self._tokens_committed / self._slot_rounds
                if self._slot_rounds else None)
         acc = (None if tpr is None or self.k == 0

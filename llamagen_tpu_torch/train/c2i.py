@@ -40,6 +40,7 @@ from llamagen_tpu_torch.parallel.tp_decode import shard_tp_params
 from llamagen_tpu_torch.train.train_state import (Optimizer, TrainState,
                                                   ema_update,
                                                   init_train_state)
+from llamagen_tpu_torch.utils import profiling
 
 StepFn = Callable[[TrainState, Any, int],
                   Tuple[TrainState, Dict[str, torch.Tensor]]]
@@ -97,13 +98,18 @@ def make_train_step(ema_decay: Optional[float] = 0.9999,
 
     def train_step(state: TrainState, batch: Any, seed: int):
         state.optimizer.zero_grad()
-        value = loss(state.forward_module, batch,
-                     step_generator(rank_seed(seed, rank, world), state.step),
-                     compute_dtype, remat, group)
-        value.backward()
-        grad_norm = state.optimizer.step(state.step)
-        if state.ema is not None and ema_decay is not None:
-            ema_update(state.ema, state.model, ema_decay)
+        with profiling.span("train.forward", samples=len(batch[0])):
+            value = loss(state.forward_module, batch,
+                         step_generator(rank_seed(seed, rank, world),
+                                        state.step),
+                         compute_dtype, remat, group)
+        # the thread blocks here while autograd launches the backward
+        with profiling.span("train.backward"):
+            value.backward()
+        with profiling.span("train.update"):
+            grad_norm = state.optimizer.step(state.step)
+            if state.ema is not None and ema_decay is not None:
+                ema_update(state.ema, state.model, ema_decay)
         state.step += 1
         value = value.detach()
         if group is not None:  # a TP group's ranks hold the same loss

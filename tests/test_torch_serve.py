@@ -262,8 +262,8 @@ def test_bookkeeping_and_stats(pair):
     assert st["completed"] == 2 and st["running"] == 0 \
         and st["waiting"] == 0 and st["slots"] == 2
     assert st["tpot_mean_s"] > 0 and st["throughput_img_per_s"] > 0
-    # the first token is interpolated one step after admission, not at the
-    # chunk boundary
+    # the first token is observed after the admission chunk's first step,
+    # not at the chunk boundary
     assert st["ttft_p50_s"] <= st["e2e_latency_p50_s"] / 8
     assert eng.steps_run == MAX_NEW
     assert int(eng.state.pos.max()) == MAX_NEW < eng.cache_rows == 128
