@@ -17,8 +17,11 @@ per-slot tensors written at admission, so requests with different cfg
 scales, temperatures and filters share a step.
 
 The JAX chunk is one compiled `fori_loop`; here it is a Python loop of
-`n_steps <= chunk` steps whose state is updated in place or by
-`torch.where`, with no device-to-host read inside a chunk: the host keeps
+`n_steps <= chunk` steps whose state is updated in place (every tensor of
+the state keeps its storage), so that on a CUDA device one decode step is
+captured as a CUDA graph and replayed, one launch a step instead of a few
+hundred (`DecodeGraphs`; a TP shard runs eagerly). No device-to-host read
+happens inside a chunk: the host keeps
 its own mirror of each slot's progress (positions, tokens left, filters),
 so it sizes each chunk, checks the cache bounds and decides whether the
 top-k / top-p sort runs without reading the device. The decode-attention
@@ -54,7 +57,7 @@ import torch
 
 from llamagen_tpu_torch.config import GPTConfig, find_multiple
 from llamagen_tpu_torch.models import gpt
-from llamagen_tpu_torch.ops import sampling
+from llamagen_tpu_torch.ops import attention, quant_matmul, sampling, w4_matmul
 from llamagen_tpu_torch.ops.attention import TAIL, quantize_rows
 from llamagen_tpu_torch.ops.generate import build_cfg_batch
 from llamagen_tpu_torch.utils import profiling
@@ -184,7 +187,9 @@ def sample_and_advance(state: EngineState, logits: torch.Tensor,
     """The tail of one step, in place: CFG mix with per-slot scales,
     penalties, sampling, then the bookkeeping (write the token of every
     active unfinished slot, advance pos and n_generated, retire finished
-    slots). `filters_off`: the host knows no slot asks for top-k / top-p."""
+    slots). Every tensor of the state keeps its storage (a captured step
+    replays on those addresses). `filters_off`: the host knows no slot
+    asks for top-k / top-p."""
     ss = state.sp_slots
     mixed = sampling.cfg_mix(logits, ss.cfg_scale)
     counts = state.output_counts
@@ -197,11 +202,11 @@ def sample_and_advance(state: EngineState, logits: torch.Tensor,
     going = state.active & (state.n_generated < max_new_tokens)
     cols = torch.arange(max_new_tokens, device=nxt.device)
     write = going[:, None] & (cols[None, :] == state.n_generated[:, None])
-    state.tokens_out = torch.where(write, nxt[:, None], state.tokens_out)
-    state.n_generated = state.n_generated + going.to(torch.int32)
-    state.cur_token = torch.where(going, nxt, state.cur_token)
-    state.pos = state.pos + state.active.to(torch.int32)
-    state.active = state.active & (state.n_generated < max_new_tokens)
+    torch.where(write, nxt[:, None], state.tokens_out, out=state.tokens_out)
+    state.n_generated.add_(going.to(torch.int32))
+    torch.where(going, nxt, state.cur_token, out=state.cur_token)
+    state.pos.add_(state.active.to(torch.int32))
+    state.active.logical_and_(state.n_generated < max_new_tokens)
     if counts is not None:
         sampling.update_output_counts(counts, nxt, going)
 
@@ -210,18 +215,95 @@ def apply_admission(state: EngineState, admit_mask: torch.Tensor,
                     admit_labels: torch.Tensor,
                     admit_sp: SlotSampling) -> None:
     """Reset the admitted slots' bookkeeping and write their sampling
-    parameters, in place. Their cache rows need no reset: a slot reads
-    only rows it has written since its admission."""
-    state.pos = torch.where(admit_mask, 0, state.pos)
-    state.active = state.active | admit_mask
-    state.labels = torch.where(admit_mask, admit_labels, state.labels)
-    state.n_generated = torch.where(admit_mask, 0, state.n_generated)
-    state.sp_slots = SlotSampling(*(
-        torch.where(admit_mask, a.to(s.dtype), s)
-        for a, s in zip(admit_sp, state.sp_slots)))
+    parameters, in place (no tensor of the state changes its storage).
+    Their cache rows need no reset: a slot reads only rows it has written
+    since its admission."""
+    state.pos.masked_fill_(admit_mask, 0)
+    state.active.logical_or_(admit_mask)
+    torch.where(admit_mask, admit_labels, state.labels, out=state.labels)
+    state.n_generated.masked_fill_(admit_mask, 0)
+    for a, s in zip(admit_sp, state.sp_slots):
+        torch.where(admit_mask, a.to(s.dtype), s, out=s)
     if state.output_counts is not None:
-        state.output_counts = torch.where(admit_mask[:, None], 0,
-                                          state.output_counts)
+        state.output_counts.masked_fill_(admit_mask[:, None], 0)
+
+
+def _addresses(state: EngineState) -> Tuple[int, ...]:
+    """What a captured step is bound to: the state's generator and the
+    storage of every tensor of the state."""
+    cache = state.cache
+    tensors = [state.pos, state.active, state.cur_token, state.labels,
+               state.n_generated, state.tokens_out, *state.sp_slots,
+               *cache.kv, *(cache.kv_scale or ()), *(cache.tail or ())]
+    tensors += [t for t in (state.output_counts, state.prefix_pad)
+                if t is not None]
+    return (id(state.generator),) + tuple(t.data_ptr() for t in tensors)
+
+
+# the kernel wrappers whose launch counters a decode step advances (K1;
+# K2 or, for W4 weights, K3)
+_COUNTED = (attention.decode_attention, quant_matmul.int8_matmul,
+            w4_matmul.w4_matmul)
+
+
+class _Replay(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    launches: Tuple[int, ...]  # the captured launches of each `_COUNTED`
+
+    def __call__(self) -> None:
+        self.graph.replay()
+        for fn, n in zip(_COUNTED, self.launches):
+            fn.launches += n
+
+
+class DecodeGraphs:
+    """One decode step captured as a CUDA graph per value of the host's
+    `filters_off` flag (it decides whether the [B, V] sort is in the
+    step), over the tensors of one `EngineState`: a replay reads and
+    writes the storage it was captured on, which the state's helpers
+    (`apply_admission`, `sample_and_advance`, `scatter_pairs`) keep, and
+    draws its Gumbel noise from the state's generator, registered with
+    each graph, so that every replay draws afresh and advances the
+    generator as the eager step would. `enabled` on a CUDA device for a
+    whole model (a TP shard's all-reduces cannot be captured). A state
+    with other storage drops the graphs and captures anew. Counts the
+    decode steps replayed and run eagerly."""
+
+    def __init__(self, step: Callable[[EngineState, bool], None],
+                 enabled: bool):
+        self.step = step
+        self.enabled = enabled
+        self.replays = self.eager = 0
+        self._key: Optional[Tuple[int, ...]] = None
+        self._graphs: Dict[bool, _Replay] = {}
+
+    def get(self, state: EngineState, filters_off: bool
+            ) -> Optional[_Replay]:
+        if not self.enabled:
+            return None
+        key = _addresses(state)
+        if key != self._key:
+            self._key, self._graphs = key, {}
+        return self._graphs.get(filters_off)
+
+    def capture(self, state: EngineState, filters_off: bool
+                ) -> Optional[_Replay]:
+        """Capture the step (after an eager one has loaded its kernels and
+        their geometry); the capture runs nothing, so the launch counters
+        it advanced are set back."""
+        if not self.enabled:
+            return None
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        before = [fn.launches for fn in _COUNTED]
+        # thread_local: the app's handler threads may use the card meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.step(state, filters_off)
+        made = tuple(fn.launches - n for fn, n in zip(_COUNTED, before))
+        for fn, n in zip(_COUNTED, before):
+            fn.launches = n
+        self._graphs[filters_off] = _Replay(graph, made)
+        return self._graphs[filters_off]
 
 
 def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
@@ -232,7 +314,19 @@ def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
     chunk; here a larger one raises, since the caller's mirror of the
     slots would go wrong; JAX's admission inside the step is the caller's
     `apply_admission` before it). No step reads the device from the
-    host."""
+    host. On a CUDA device a whole model's step is captured after its
+    first eager run and replayed from then on (`DecodeGraphs`,
+    `engine_step.graphs`)."""
+
+    def one_step(state: EngineState, filters_off: bool) -> None:
+        emb, pad2 = build_step_embeddings(model, state, compute_dtype)
+        pos2 = torch.cat([state.pos, state.pos])
+        logits = gpt.decode_step_slots(model, emb, pos2, state.cache,
+                                       compute_dtype, prefix_pad=pad2)
+        sample_and_advance(state, logits, max_new_tokens, filters_off)
+
+    graphs = DecodeGraphs(one_step, model.tp_size == 1
+                          and model.freqs_cis.device.type == "cuda")
 
     @torch.no_grad()
     def engine_step(state: EngineState, n_steps: int,
@@ -240,18 +334,22 @@ def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
         if n_steps > chunk:
             raise ValueError(f"{n_steps} steps, more than the chunk {chunk}")
         rows = 2 * state.pos.shape[0]
+        replay = graphs.get(state, filters_off)
         for _ in range(n_steps):
-            with profiling.span("engine.decode", rows=rows):
-                emb, pad2 = build_step_embeddings(model, state,
-                                                  compute_dtype)
-                pos2 = torch.cat([state.pos, state.pos])
-                logits = gpt.decode_step_slots(model, emb, pos2, state.cache,
-                                               compute_dtype,
-                                               prefix_pad=pad2)
-                sample_and_advance(state, logits, max_new_tokens,
-                                   filters_off)
+            with profiling.span("engine.decode", rows=rows,
+                                graphed=int(replay is not None)):
+                if replay is not None:
+                    replay()
+                else:
+                    one_step(state, filters_off)
+            if replay is not None:
+                graphs.replays += 1
+            else:
+                graphs.eager += 1
+                replay = graphs.capture(state, filters_off)
         return state
 
+    engine_step.graphs = graphs
     return engine_step
 
 
@@ -589,10 +687,6 @@ class ServeEngine(EngineBase):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  cache_dtype: Optional[torch.dtype] = None,
                  track_penalties: bool = False, mesh=None, tp: int = 1):
-        self._init_requests(model.cfg, model.freqs_cis.device, num_pairs,
-                            max_new_tokens, sampling_params)
-        cfg = self.cfg
-        self.chunk = chunk
         if tp != model.tp_size or (mesh is not None
                                    and mesh["tp"].size() != tp):
             raise ValueError(f"tp {tp}, a model sharded {model.tp_size} "
@@ -600,6 +694,11 @@ class ServeEngine(EngineBase):
         gpt.tp_group_of(model)  # a TP shard without its group raises
         self.step_fn = make_engine_step(model, max_new_tokens, chunk,
                                         compute_dtype)
+        self._graphs = self.step_fn.graphs
+        self._init_requests(model.cfg, model.freqs_cis.device, num_pairs,
+                            max_new_tokens, sampling_params)
+        cfg = self.cfg
+        self.chunk = chunk
         self.state = init_engine_state(
             cfg, num_pairs, max_new_tokens,
             torch.Generator(device=self.device).manual_seed(seed),
@@ -616,6 +715,8 @@ class ServeEngine(EngineBase):
         self._slot_filters_off = np.ones((num_pairs,), bool)
         # the first-token events of the running requests, by request id
         self._first_events: Dict[int, torch.cuda.Event] = {}
+        # the end of the last chunk launched (on the card)
+        self._chunk_end: Optional[torch.cuda.Event] = None
         self.steps_run = 0  # decode steps since construction (host count)
         self.admissions = 0  # t2i admission prefills (host count)
         if self.t2i:
@@ -657,6 +758,7 @@ class ServeEngine(EngineBase):
         the first-token events on the host clock: an event recorded on an
         idle stream (after a sync) beside time.time()."""
         super().reset_stats()
+        self._decode_base = (self._graphs.replays, self._graphs.eager)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             self._anchor = self._event()
@@ -690,6 +792,12 @@ class ServeEngine(EngineBase):
 
     def _admit_and_step(self) -> None:
         with profiling.span("engine.admit_and_step") as span:
+            if self._chunk_end is not None:
+                # graph replays return at once: without this wait a cycle
+                # with nothing to harvest would queue chunk after chunk, and
+                # a request would be admitted (and stamped) seconds before
+                # its slot starts, new arrivals behind the whole queue
+                self._chunk_end.synchronize()
             admitted: Dict[int, Request] = {}
             for i in range(self.num_pairs):
                 if self.slot_request[i] is not None or self.pending.empty():
@@ -734,6 +842,9 @@ class ServeEngine(EngineBase):
             self.steps_run += n_steps
             self._slot_pos[busy] += n_steps
             self._slot_remaining[busy] -= n_steps
+            if self.device.type == "cuda":
+                self._chunk_end = torch.cuda.Event()
+                self._chunk_end.record(torch.cuda.current_stream(self.device))
 
     def _harvest(self) -> None:
         with profiling.span("engine.harvest") as span:
@@ -760,5 +871,10 @@ class ServeEngine(EngineBase):
 
     def stats(self) -> Dict[str, Any]:
         """The gauges (`EngineBase._gauges`), read from the host mirror: no
-        device read."""
-        return self._gauges(int((self._slot_remaining > 0).sum()))
+        device read; then `decode_graphed_share`, the share of the decode
+        steps since `reset_stats` that were graph replays (None before
+        the first step)."""
+        replays = self._graphs.replays - self._decode_base[0]
+        steps = replays + self._graphs.eager - self._decode_base[1]
+        return {**self._gauges(int((self._slot_remaining > 0).sum())),
+                "decode_graphed_share": replays / steps if steps else None}

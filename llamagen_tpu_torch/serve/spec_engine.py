@@ -395,12 +395,15 @@ class SpecEngine(EngineBase):
         / k, clipped to [0, 1]). Read on the host: no device read. TTFT is
         the host clock at admission (`_admit`); `ServeEngine` observes
         when the device sampled the first token instead, so the two
-        engines' `ttft_*` are not the same reading."""
+        engines' `ttft_*` are not the same reading. Its rounds are never
+        captured as graphs: `decode_graphed_share` reads 0 once a round
+        has run."""
         tpr = (self._tokens_committed / self._slot_rounds
                if self._slot_rounds else None)
         acc = (None if tpr is None or self.k == 0
                else max(0.0, min(1.0, (tpr - 1) / self.k)))
         running = sum(r is not None for r in self.slot_request)
-        return self._gauges(running, rounds=self.rounds,
-                            tokens_per_round_per_slot=tpr,
-                            acceptance_rate=acc)
+        return {**self._gauges(running, rounds=self.rounds,
+                               tokens_per_round_per_slot=tpr,
+                               acceptance_rate=acc),
+                "decode_graphed_share": 0.0 if self._slot_rounds else None}

@@ -258,7 +258,10 @@ def test_bookkeeping_and_stats(pair):
     jst = JServeEngine(params, jax_config(NANO), num_pairs=2,
                        max_new_tokens=MAX_NEW, chunk=4,
                        compute_dtype=jnp.float32).stats()
-    assert list(st) == list(jst)
+    # JAX's gauges, then the port's share of graph-replayed decode steps
+    # (none on the CPU)
+    assert list(st) == list(jst) + ["decode_graphed_share"]
+    assert st["decode_graphed_share"] == 0.0
     assert st["completed"] == 2 and st["running"] == 0 \
         and st["waiting"] == 0 and st["slots"] == 2
     assert st["tpot_mean_s"] > 0 and st["throughput_img_per_s"] > 0

@@ -450,3 +450,28 @@ def tp_cases(cases):
         out[name] = np.stack([r.result for r in reqs])
     return out
 
+
+
+def tp_engine_on_card(cfg, sd):
+    """One of two gloo ranks sharing the card: rank r's TP shard of the
+    model `sd` (bf16, W8A16 layers) serves four labels with an int8 cache;
+    returns (the engine's graphed share, the graphs it captured, the
+    tokens)."""
+    from llamagen_tpu_torch.models import gpt
+    from llamagen_tpu_torch.ops.quant_matmul import quantize_gpt_params
+    from llamagen_tpu_torch.parallel.tp_decode import shard_tp_params
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    assert distributed.init_distributed("cuda", "gloo")
+    mesh = make_mesh(1, 1, -1, "cuda")
+    tp, rank = mesh["tp"].size(), mesh.get_local_rank("tp")
+    model = gpt.Transformer(cfg)
+    model.load_state_dict(sd)
+    model = quantize_gpt_params(model.to("cuda", torch.bfloat16).eval())
+    model = shard_tp_params(model, rank, tp, mesh["tp"].get_group())
+    eng = ServeEngine(model, mesh=mesh, tp=tp, num_pairs=2,
+                      max_new_tokens=cfg.block_size, chunk=8,
+                      compute_dtype=torch.bfloat16, cache_dtype=torch.int8,
+                      sampling_params=SamplingParams(temperature=0.0))
+    tokens = eng.generate([3, 7, 11, 19])
+    return (eng.stats()["decode_graphed_share"],
+            len(eng.step_fn.graphs._graphs), tokens)
