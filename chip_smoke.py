@@ -91,6 +91,14 @@ Phases, each of which raises on a failed check (exit code != 0):
 15. The serving app (`python -m llamagen_tpu_torch.cli.app --quantize
    int8`, GPT-B 256 px) in a subprocess on a free port: three `GET
    /generate` (256 x 256 PNGs) and `GET /stats` (3 completed).
+   Then DeepSeek-V2-Lite's kernels at its serving cell's shapes against
+   their plain versions and timed: K6 (latent decode attention, B 1,024,
+   16 heads x 576 over a 640-row bf16 cache, positions 0-575; every
+   output row to 4 bf16 ulps of its own largest value, the cache exactly)
+   and K7 (grouped W8A16 experts, 6,144 pairs over 64 experts, [2048,
+   2816] and [1408, 2048]); then `ServeEngine` at its widths cut to 2
+   layers, 512 pairs, the first chunk under sync debug mode "error", its
+   counters exactly 2 K6, 2 K7 and 13 K2 a step.
 16. The T5 caption encoder (`text/t5.py::T5Encoder`) at flan-t5-xl's
    widths, random weights: bf16 against f32 on the card, 4 x 120 ids with
    right-padded masks.
@@ -275,7 +283,8 @@ last line is `{"ok": true, "device": {...}}`; the line before it is the
 kernels' JSON record (K1-K5: launches on their path, errors, times, bound,
 library time; then K1, K2 and K5 again at the t2i sampling shapes, K4 at
 the t2i training shape, K2, K3 and K5 on the speculative engine's path,
-K1 on the FID samplers' paths, K1, K2, K3 and K4 at the TP ranks'
+K6 and K7 at DeepSeek-V2-Lite's serving shapes, K1 on the FID samplers'
+paths, K1, K2, K3 and K4 at the TP ranks'
 shapes, and K4 on the step after a checkpoint resumed at tp 2), the one
 before that the card's name and power limit.
 Needs a CUDA device; runs nothing without one.
@@ -1560,6 +1569,175 @@ def run_engine_greedy_f32(dev):
     if not same:
         bad = (got != ref).nonzero()[:5].tolist()
         raise AssertionError(f"greedy engine tokens differ at {bad}")
+
+
+# DeepSeek-V2-Lite's kernels at its serving cell's shapes: 512 CFG pairs
+# (1,024 rows), 16 heads x (512 + 64) over a 640-row bf16 latent cache at
+# positions 0-575 (K6); 6,144 (row, expert) pairs over 64 experts, gate and
+# up [2048, 2816], down [1408, 2048] (K7); the engine at those widths and
+# rows, cut to MLA_LAYERS layers (layer 0 dense, layer 1 routed)
+MLA_ROWS, MLA_S, MLA_RANK, MLA_ROPE, MLA_SCALE = 1024, 640, 512, 64, 0.1147
+MOE_EXPERTS, MOE_PAIRS = 64, 6 * 1024
+MOE_MATMULS = {"gate_up": (2048, 2816), "down": (1408, 2048)}
+MLA_LAYERS, MLA_CHUNK = 2, 8
+
+
+def check_mla_moe(dev):
+    """K6 and K7 against their plain versions at the serving cell's shapes
+    and timed there (4 buffer sets a kernel, captured in one graph), then
+    `ServeEngine` on DeepSeek-V2-Lite's widths at MLA_LAYERS layers (W8A16,
+    bf16 latent cache, 512 pairs, the first chunk under sync debug
+    "error") with its counters zeroed just before: exactly MLA_LAYERS K6,
+    2 per routed layer K7 and 13 K2 a step. Returns K6's and K7's worst
+    errors, times and launches."""
+    from llamagen_tpu_torch.ops import moe
+    from llamagen_tpu_torch.ops.mla_attention import (
+        mla_decode_attention, mla_decode_attention_ref)
+    b, width = MLA_ROWS, MLA_RANK + MLA_ROPE
+    pos = torch.linspace(0, 575, b, device=dev).int()
+
+    def k6_state(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(b, 16, width, generator=g, device=dev).bfloat16(),
+                torch.randn(b, width, generator=g, device=dev).bfloat16(),
+                torch.randn(b, MLA_S, width, generator=g,
+                            device=dev).bfloat16())
+
+    q, new, cache = k6_state(61)
+    cache_ref = cache.clone()
+    out = mla_decode_attention(q, new, cache, pos, MLA_RANK, MLA_SCALE)
+    ref = mla_decode_attention_ref(q, new, cache_ref, pos, MLA_RANK,
+                                   MLA_SCALE)
+    torch.cuda.synchronize()
+    k6_err = max_err(out, ref)
+    tol = row_tolerance(ref)
+    ratio = ((out.float() - ref.float()).abs() / tol).max().item()
+    same = torch.equal(cache, cache_ref)
+    log(f"K6 mla_decode_attention B {b}, 16 heads x {width} ({MLA_RANK} + "
+        f"{MLA_ROPE}), S {MLA_S}, positions 0-575: max_abs_err {k6_err:.3g}"
+        f", worst error / its row's tolerance {ratio:.3g}, cache equal: "
+        f"{same}")
+    if not (ratio <= 1.0 and same):
+        raise AssertionError("K6 disagrees with its plain version")
+    del q, new, cache, cache_ref, out, ref
+    states = [k6_state(62 + i) for i in range(4)]
+    ms = graph_ms([lambda st=st: mla_decode_attention(
+        st[0], st[1], st[2], pos, MLA_RANK, MLA_SCALE) for st in states])
+    plain = graph_ms([lambda st=st: mla_decode_attention_ref(
+        st[0], st[1], st[2], pos, MLA_RANK, MLA_SCALE) for st in states])
+    below = pos.long().sum().item()  # cache rows read below the positions
+    bnd_ms, by = bound(below * width * 2 + nbytes(states[0][0])
+                       + 2 * nbytes(states[0][1]) + b * 16 * MLA_RANK * 2,
+                       (below + b) * 16 * 2 * (width + MLA_RANK))
+    k6_t = dict(ms=ms, plain=plain, bound=bnd_ms, by=by, library=None)
+    log(f"K6 time, B {b}, positions 0-575, S {MLA_S}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bnd_ms:.4f} ms ({by}); no library "
+        f"call reads one shared row for 16 heads")
+    del states
+    _free()
+
+    g = torch.Generator(device=dev).manual_seed(63)
+    ids = torch.randint(0, MOE_EXPERTS, (MOE_PAIRS, 1), generator=g,
+                        device=dev)
+    disp = moe.dispatch(ids, MOE_EXPERTS)
+    k7_err, k7_t = 0.0, {}
+    for name, (k, n) in MOE_MATMULS.items():
+        sets = [(torch.randint(-127, 128, (MOE_EXPERTS, k, n), generator=g,
+                               device=dev, dtype=torch.int8),
+                 torch.rand(MOE_EXPERTS, n, generator=g, device=dev) * 1e-3)
+                for _ in range(4)]
+        x = torch.randn(MOE_PAIRS, k, generator=g, device=dev).bfloat16()
+        got = moe.moe_int8_matmul(x, *sets[0], disp.offsets).float()
+        want = moe.moe_int8_matmul_ref(x, *sets[0], disp.offsets).float()
+        # a bf16 ulp either side of a rounding, and the f32 sums' order
+        # against the cancellation in outputs near zero
+        tol = 2 ** -7 * want.abs() + 1e-3 * want.abs().max()
+        worst = ((got - want).abs() / tol).max().item()
+        err = (got - want).abs().max().item()
+        log(f"K7 moe_int8_matmul {name} {MOE_PAIRS} pairs over "
+            f"{MOE_EXPERTS} experts [{k}, {n}]: max_abs_err {err:.3g}, "
+            f"worst error / its tolerance {worst:.3g}")
+        if not worst <= 1.0:
+            raise AssertionError(f"K7 {name} disagrees with its plain "
+                                 f"version")
+        k7_err = max(k7_err, err)
+        ms = graph_ms([lambda w=w: moe.moe_int8_matmul(x, *w, disp.offsets)
+                       for w in sets])
+        # the plain version reads the offsets on the host: no graph
+        plain = cuda_ms(lambda: [moe.moe_int8_matmul_ref(x, *w, disp.offsets)
+                                 for w in sets], reps=3, calls=1) / len(sets)
+        bnd_ms, by = bound(nbytes(*sets[0], x) + MOE_PAIRS * n * 2,
+                           2 * MOE_PAIRS * k * n)
+        k7_t[name] = dict(ms=ms, plain=plain, bound=bnd_ms, by=by,
+                          library=None)
+        log(f"K7 time {name} [{k}, {n}], {MOE_PAIRS} pairs: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd_ms:.4f} ms "
+            f"({by}); no library call multiplies int8 expert groups")
+        del sets, x, got, want
+    _free()
+    return k6_err, k6_t, k7_err, k7_t, run_mla_moe_engine(dev)
+
+
+def run_mla_moe_engine(dev):
+    """`check_mla_moe`'s engine run: its launches of K6, K7 and K2."""
+    from llamagen_tpu_torch.config import MLA_MOE_CONFIGS
+    from llamagen_tpu_torch.models import mla_moe
+    from llamagen_tpu_torch.ops import moe
+    from llamagen_tpu_torch.ops.mla_attention import mla_decode_attention
+    from llamagen_tpu_torch.ops.quant_matmul import int8_matmul
+    from llamagen_tpu_torch.serve.engine import SamplingParams, ServeEngine
+    cfg = MLA_MOE_CONFIGS["DeepSeek-V2-Lite"](n_layer=MLA_LAYERS)
+    model = mla_moe.MLAMoETransformer(cfg, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(64)
+    with torch.no_grad():
+        for prm in model.parameters():
+            if prm.dim() == 1:
+                prm.fill_(1.0)
+            else:
+                prm.normal_(0.0, cfg.initializer_range, generator=g)
+        for layer in model.layers:
+            mla_moe.quantize_layer_(layer)
+        model.output.quantize_()
+    model.eval()
+    pairs = MLA_ROWS // 2
+    eng = ServeEngine(model, num_pairs=pairs, max_new_tokens=cfg.block_size,
+                      sampling_params=SamplingParams(cfg_scale=CFG_SCALE),
+                      chunk=MLA_CHUNK, compute_dtype=torch.bfloat16,
+                      cache_dtype=torch.bfloat16)
+    for i in range(pairs):
+        eng.submit(i * 7 % 1000)
+    fns = (mla_decode_attention, moe.moe_int8_matmul, int8_matmul)
+    for f in fns:
+        f.launches = 0
+    t0 = time.time()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._admit_and_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(2):
+        eng._admit_and_step()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    steps = eng.steps_run
+    got = tuple(f.launches for f in fns)
+    n_moe = cfg.n_moe_layers
+    want = (MLA_LAYERS * steps, 2 * n_moe * steps,
+            (3 * MLA_LAYERS + 3 * cfg.first_k_dense + 3 * n_moe + 1) * steps)
+    st = eng.stats()
+    log(f"MLA + MoE engine (DeepSeek-V2-Lite widths, {MLA_LAYERS} layers, "
+        f"W8A16, bf16 latent cache, {pairs} pairs, chunk {MLA_CHUNK}): "
+        f"{steps} steps in {secs:.3f} s, decode_graphed_share "
+        f"{st['decode_graphed_share']}; launches K6 {got[0]}, K7 {got[1]}, "
+        f"K2 {got[2]} (expected {want}); first chunk under sync debug mode "
+        f"'error'")
+    if got != want or steps != 3 * MLA_CHUNK:
+        raise AssertionError(f"MLA + MoE engine launches {got}, steps "
+                             f"{steps}: expected {want}, {3 * MLA_CHUNK}")
+    del eng, model
+    _free()
+    return {"mla_decode_attention": got[0], "moe_int8_matmul": got[1],
+            "steps": steps}
 
 
 def _png_size(png):
@@ -4711,6 +4889,8 @@ def main():
     phase("serving engine", run_engine)
     phase("greedy f32 engine == generate", run_engine_greedy_f32)
     phase("serving app", run_app)
+    k6_err, k6_t, k7_err, k7_t, mla_launches = phase(
+        "DeepSeek-V2-Lite kernels and engine", check_mla_moe)
     phase("T5 encoder, flan-t5-xl widths", run_t5_encoder)
     t2i_launches = phase("t2i sampling path", run_t2i_path)
     t2i_engine = phase("t2i serving engine", run_t2i_engine)
@@ -4837,6 +5017,17 @@ def main():
               "llamagen_tpu/ops/chunk_attention.py:315",
               spec_engine["chunk_decode_attention"], k5_err,
               k5_t[f"{SPEC_K + 1} spec"]),
+        # DeepSeek-V2-Lite's serving cell: K6 and K7 at its shapes, their
+        # launches from the engine run at its widths
+        entry(f"mla_decode_attention [DeepSeek-V2-Lite serving: B "
+              f"{MLA_ROWS}, 16 heads x {MLA_RANK} + {MLA_ROPE}, S {MLA_S}]",
+              "mla_decode.cu", None, mla_launches["mla_decode_attention"],
+              k6_err, k6_t),
+        *(entry(f"moe_int8_matmul [DeepSeek-V2-Lite serving: {name} "
+                f"{list(MOE_MATMULS[name])}, {MOE_PAIRS} pairs over "
+                f"{MOE_EXPERTS} experts]", "int8_matmul.cu", None,
+                mla_launches["moe_int8_matmul"], k7_err, k7_t[name])
+          for name in MOE_MATMULS),
         # the evaluation slice: K1's bf16 entry in the FID samplers
         entry(f"decode_attention [c2i FID sampler: GPT-L 384, bf16 cache, "
               f"B {2 * FID_BATCH}]", "decode_attention.cu",

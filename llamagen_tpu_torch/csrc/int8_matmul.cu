@@ -42,6 +42,12 @@
 //     (distributed shared memory; rank j sums the j-th 1/ks of the [B, 64]
 //     tile), and one cluster barrier later every block sums its part in rank
 //     order, scales and stores it: one launch, no workspace in device memory.
+//
+// K7 (`moe_int8_kernel`, ops/moe.py::moe_int8_matmul) is the same body over
+// the experts of a routed layer: the (row, expert) pairs sorted by expert,
+// each expert's rows times its own int8 matrix, the row ranges read from
+// device offsets under a fixed grid (so a CUDA graph can replay it). It
+// replaces no TPU kernel (the JAX package has no experts).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -151,17 +157,19 @@ __device__ void stage_x(const T* __restrict__ x, __nv_bfloat16* xs, int b0,
   }
 }
 
-// grid (ks, ceil(N / COLS)), cluster (ks, 1, 1): block (rank, tile) owns
-// columns [COLS tile, COLS tile + COLS) and K rows [rank * kb, rank * kb +
-// kb) for every batch row. A warp owns 32 columns (two m-tiles) and one
-// group of batch rows: COLS 64 keeps more blocks for a small N, COLS 128
-// reads whole 128-byte lines and keeps all 8 warps busy at 16 batch rows. vec: N % 16 == 0 and K % 8 == 0 with 16-byte
+// The body of both kernels below. grid (ks, ceil(N / COLS), ...), cluster
+// (ks, 1, 1): block (rank, tile) owns columns [COLS tile, COLS tile + COLS)
+// and K rows [rank * kb, rank * kb + kb) for every batch row. A warp owns 32
+// columns (two m-tiles) and one group of batch rows: COLS 64 keeps more
+// blocks for a small N, COLS 128 reads whole 128-byte lines and keeps all 8
+// warps busy at 16 batch rows. vec: N % 16 == 0 and K % 8 == 0 with 16-byte
 // aligned bases (16-byte copies); otherwise narrower synchronous copies.
+// Every block of a cluster calls it with the same B >= 1.
 template <typename T, int COLS>
-__global__ void __launch_bounds__(kThreads)
-int8_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, T* __restrict__ out, int B,
-                int K, int N, int kb, int bc, bool vec_w, bool vec_x) {
+__device__ __forceinline__ void int8_mma_tile(
+    const T* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, T* __restrict__ out, int B, int K,
+    int N, int kb, int bc, bool vec_w, bool vec_x) {
   constexpr int kPlanes = sizeof(T) == 4 ? 3 : 1;
   constexpr int kCols = COLS;
   constexpr int kWRow = kCols + 16;      // padded shared row of weight bytes
@@ -309,30 +317,60 @@ int8_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// K2: x [B, K] @ w [K, N].
 template <typename T, int COLS>
-cudaError_t launch(const void* x, const void* w, const void* scale,
-                   void* out, int B, int K, int N, int ks, int kb, int bc,
-                   void* stream) {
+__global__ void __launch_bounds__(kThreads)
+int8_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, T* __restrict__ out, int B,
+                int K, int N, int kb, int bc, bool vec_w, bool vec_x) {
+  int8_mma_tile<T, COLS>(x, w, scale, out, B, K, N, kb, bc, vec_w, vec_x);
+}
+
+// K7, the grouped product of a routed expert layer: rows [offsets[e],
+// offsets[e + 1]) of x (the (row, expert) pairs sorted by expert) times
+// expert e's w [K, N] (w + e K N, scales + e N), for every expert e =
+// blockIdx.z. The grid is fixed (E experts x the tiles); the offsets are
+// read on the device, and the blocks of an expert with no rows return at
+// once (all of a cluster alike: they share e). What bounds it at decode
+// (~96 rows an expert) is reading every expert's int8 weights once, which
+// the body's one-block-per-weight-tile design does.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(kThreads)
+moe_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, T* __restrict__ out,
+                const int* __restrict__ offsets, int K, int N, int kb,
+                int bc, bool vec_w, bool vec_x) {
+  const int e = blockIdx.z;
+  const int r0 = offsets[e], rows = offsets[e + 1] - r0;
+  if (rows <= 0) return;
+  int8_mma_tile<T, COLS>(x + static_cast<size_t>(r0) * K,
+                         w + static_cast<size_t>(e) * K * N,
+                         scale + static_cast<size_t>(e) * N,
+                         out + static_cast<size_t>(r0) * N, rows, K, N, kb,
+                         bc, vec_w, vec_x);
+}
+
+// One launch of `kernel` over grid (ks, ceil(N / COLS), experts) in
+// clusters of ks, after the checks both kernels share.
+template <typename T, int COLS, typename Kernel, typename... Args>
+cudaError_t launch_grid(Kernel kernel, bool& attr_set, int experts,
+                        int K, int N, int ks, int kb, int bc, void* stream,
+                        Args... args) {
   const int planes = sizeof(T) == 4 ? 3 : 1;
   const int smem = smem_bytes(kb, bc, planes, COLS);
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (B < 1 || K < 1 || N < 2 || N % 2 != 0 || kb % 16 != 0 || ks < 1 ||
-      ks > kMaxCluster || static_cast<long>(ks - 1) * kb >= K ||
+  if (experts < 1 || K < 1 || N < 2 || N % 2 != 0 || kb % 16 != 0 ||
+      ks < 1 || ks > kMaxCluster || static_cast<long>(ks - 1) * kb >= K ||
       static_cast<long>(ks) * kb < K || bc < 8 || bc % 8 != 0 ||
       bc > kMaxPass || smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  auto kernel = int8_mma_kernel<T, COLS>;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
+  if (!attr_set) {  // once per instantiation
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ks, (N + COLS - 1) / COLS, 1);
+  cfg.gridDim = dim3(ks, (N + COLS - 1) / COLS, experts);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -343,14 +381,44 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+bool aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int COLS>
+cudaError_t launch(const void* x, const void* w, const void* scale,
+                   void* out, int B, int K, int N, int ks, int kb, int bc,
+                   void* stream) {
+  if (B < 1) return cudaErrorInvalidValue;
+  static bool attr_set = false;
   const bool vec_w = N % 16 == 0 && aligned(w) && aligned(scale) &&
                      aligned(out);
   const bool vec_x = K % 8 == 0 && aligned(x);
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
-                            static_cast<const int8_t*>(w),
-                            static_cast<const float*>(scale),
-                            static_cast<T*>(out), B, K, N, kb, bc, vec_w,
-                            vec_x);
+  return launch_grid<T, COLS>(
+      int8_mma_kernel<T, COLS>, attr_set, 1, K, N, ks, kb, bc, stream,
+      static_cast<const T*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<T*>(out), B, K, N, kb,
+      bc, vec_w, vec_x);
+}
+
+template <typename T, int COLS>
+cudaError_t launch_moe(const void* x, const void* w, const void* scale,
+                       void* out, const void* offsets, int E, int K, int N,
+                       int ks, int kb, int bc, void* stream) {
+  static bool attr_set = false;
+  // an expert's bases stay 16-byte aligned: K N, N and K are multiples
+  // of 16, 4 and 8 elements where these hold
+  const bool vec_w = N % 16 == 0 && aligned(w) && aligned(scale) &&
+                     aligned(out);
+  const bool vec_x = K % 8 == 0 && aligned(x);
+  return launch_grid<T, COLS>(
+      moe_int8_kernel<T, COLS>, attr_set, E, K, N, ks, kb, bc, stream,
+      static_cast<const T*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<T*>(out),
+      static_cast<const int*>(offsets), K, N, kb, bc, vec_w, vec_x);
 }
 
 template <typename T>
@@ -361,6 +429,20 @@ cudaError_t launch_cols(const void* x, const void* w, const void* scale,
     return launch<T, 64>(x, w, scale, out, B, K, N, ks, kb, bc, stream);
   if (cols == 128)
     return launch<T, 128>(x, w, scale, out, B, K, N, ks, kb, bc, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_moe_cols(const void* x, const void* w, const void* scale,
+                            void* out, const void* offsets, int E, int K,
+                            int N, int cols, int ks, int kb, int bc,
+                            void* stream) {
+  if (cols == 64)
+    return launch_moe<T, 64>(x, w, scale, out, offsets, E, K, N, ks, kb, bc,
+                             stream);
+  if (cols == 128)
+    return launch_moe<T, 128>(x, w, scale, out, offsets, E, K, N, ks, kb,
+                              bc, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -385,4 +467,26 @@ extern "C" cudaError_t int8_matmul_f32(const void* x, const void* w,
                                        int bc, void* stream) {
   return launch_cols<float>(x, w, scale, out, B, K, N, cols, ks, kb, bc,
                             stream);
+}
+
+// K7. Pointers: x [R, K] (rows sorted by expert), w_q [E, K, N] int8,
+// scale [E, N] f32, out [R, N], offsets [E + 1] int32 on the device (expert
+// e's rows are [offsets[e], offsets[e + 1]); rows outside every range are
+// not written). Geometry as K2's, from ops/moe.py::moe_geometry.
+extern "C" cudaError_t moe_int8_matmul_bf16(const void* x, const void* w,
+                                            const void* scale, void* out,
+                                            const void* offsets, int E,
+                                            int K, int N, int cols, int ks,
+                                            int kb, int bc, void* stream) {
+  return launch_moe_cols<__nv_bfloat16>(x, w, scale, out, offsets, E, K, N,
+                                        cols, ks, kb, bc, stream);
+}
+
+extern "C" cudaError_t moe_int8_matmul_f32(const void* x, const void* w,
+                                           const void* scale, void* out,
+                                           const void* offsets, int E, int K,
+                                           int N, int cols, int ks, int kb,
+                                           int bc, void* stream) {
+  return launch_moe_cols<float>(x, w, scale, out, offsets, E, K, N, cols,
+                                ks, kb, bc, stream);
 }

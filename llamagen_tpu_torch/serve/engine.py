@@ -55,12 +55,21 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from llamagen_tpu_torch.config import GPTConfig, find_multiple
-from llamagen_tpu_torch.models import gpt
-from llamagen_tpu_torch.ops import attention, quant_matmul, sampling, w4_matmul
+from llamagen_tpu_torch.config import GPTConfig, MLAMoEConfig, find_multiple
+from llamagen_tpu_torch.models import gpt, mla_moe
+from llamagen_tpu_torch.ops import (attention, mla_attention, moe,
+                                    quant_matmul, sampling, w4_matmul)
 from llamagen_tpu_torch.ops.attention import TAIL, quantize_rows
 from llamagen_tpu_torch.ops.generate import build_cfg_batch
 from llamagen_tpu_torch.utils import profiling
+
+
+def family(cfg):
+    """The module that allocates a model's cache and runs its decode step
+    (`init_cache`, `decode_step_slots`, with one signature):
+    `models/mla_moe.py` for an `MLAMoEConfig` (a latent cache, routed
+    experts), else `models/gpt.py`."""
+    return mla_moe if isinstance(cfg, MLAMoEConfig) else gpt
 
 
 class SlotSampling(NamedTuple):
@@ -145,8 +154,9 @@ def init_engine_state(cfg: GPTConfig, num_pairs: int, max_new_tokens: int,
     smax = find_multiple(cfg.cls_token_num + max_new_tokens, 128)
     zeros = lambda dt: torch.zeros(num_pairs, dtype=dt, device=device)
     return EngineState(
-        cache=gpt.init_cache(cfg, 2 * num_pairs, smax, cache_dtype, device,
-                             compute_dtype=compute_dtype, kv_heads=kv_heads),
+        cache=family(cfg).init_cache(cfg, 2 * num_pairs, smax, cache_dtype,
+                                     device, compute_dtype=compute_dtype,
+                                     kv_heads=kv_heads),
         pos=zeros(torch.int32), active=zeros(torch.bool),
         cur_token=zeros(torch.long), labels=zeros(torch.long),
         n_generated=zeros(torch.int32),
@@ -241,9 +251,10 @@ def _addresses(state: EngineState) -> Tuple[int, ...]:
 
 
 # the kernel wrappers whose launch counters a decode step advances (K1;
-# K2 or, for W4 weights, K3)
+# K2 or, for W4 weights, K3; for the MLA + MoE model K6, K2 and K7)
 _COUNTED = (attention.decode_attention, quant_matmul.int8_matmul,
-            w4_matmul.w4_matmul)
+            w4_matmul.w4_matmul, mla_attention.mla_decode_attention,
+            moe.moe_int8_matmul)
 
 
 class _Replay(NamedTuple):
@@ -316,13 +327,16 @@ def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
     `apply_admission` before it). No step reads the device from the
     host. On a CUDA device a whole model's step is captured after its
     first eager run and replayed from then on (`DecodeGraphs`,
-    `engine_step.graphs`)."""
+    `engine_step.graphs`). The `engine.decode` span of a routed model
+    counts its (row, expert) pairs, `routed`."""
+    decode = family(model.cfg).decode_step_slots
+    top_k = getattr(model.cfg, "top_k", None)
 
     def one_step(state: EngineState, filters_off: bool) -> None:
         emb, pad2 = build_step_embeddings(model, state, compute_dtype)
         pos2 = torch.cat([state.pos, state.pos])
-        logits = gpt.decode_step_slots(model, emb, pos2, state.cache,
-                                       compute_dtype, prefix_pad=pad2)
+        logits = decode(model, emb, pos2, state.cache, compute_dtype,
+                        prefix_pad=pad2)
         sample_and_advance(state, logits, max_new_tokens, filters_off)
 
     graphs = DecodeGraphs(one_step, model.tp_size == 1
@@ -334,10 +348,11 @@ def make_engine_step(model: gpt.Transformer, max_new_tokens: int,
         if n_steps > chunk:
             raise ValueError(f"{n_steps} steps, more than the chunk {chunk}")
         rows = 2 * state.pos.shape[0]
+        counts = {"routed": rows * top_k} if top_k else {}
         replay = graphs.get(state, filters_off)
         for _ in range(n_steps):
             with profiling.span("engine.decode", rows=rows,
-                                graphed=int(replay is not None)):
+                                graphed=int(replay is not None), **counts):
                 if replay is not None:
                     replay()
                 else:
@@ -678,7 +693,12 @@ class ServeEngine(EngineBase):
     process group (`shard_tp_params(model, rank, tp, group)`); without the
     group, or for a model sharded another number of ways, it raises.
     `mesh`, where given, must have that tp. Every rank submits the same
-    requests (module docstring)."""
+    requests (module docstring).
+
+    `model` may also be an `models/mla_moe.py::MLAMoETransformer` (a
+    bf16 or f32 latent cache, one device, no TP); its `stats()` then adds
+    `moe_expert_rows`, the rows each routed layer sent to each expert
+    since `reset_stats`."""
 
     def __init__(self, model: gpt.Transformer, *, num_pairs: int = 16,
                  max_new_tokens: int = 576,
@@ -687,6 +707,10 @@ class ServeEngine(EngineBase):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  cache_dtype: Optional[torch.dtype] = None,
                  track_penalties: bool = False, mesh=None, tp: int = 1):
+        routed = isinstance(model.cfg, MLAMoEConfig)
+        if routed and (tp != 1 or mesh is not None):
+            raise NotImplementedError("the MLA + MoE model serves on one "
+                                      "device: no tensor parallelism")
         if tp != model.tp_size or (mesh is not None
                                    and mesh["tp"].size() != tp):
             raise ValueError(f"tp {tp}, a model sharded {model.tp_size} "
@@ -695,6 +719,7 @@ class ServeEngine(EngineBase):
         self.step_fn = make_engine_step(model, max_new_tokens, chunk,
                                         compute_dtype)
         self._graphs = self.step_fn.graphs
+        self._expert_rows = model.expert_rows if routed else None
         self._init_requests(model.cfg, model.freqs_cis.device, num_pairs,
                             max_new_tokens, sampling_params)
         cfg = self.cfg
@@ -705,7 +730,7 @@ class ServeEngine(EngineBase):
             self.device, cache_dtype=cache_dtype or compute_dtype,
             compute_dtype=compute_dtype,
             track_counts=self.sp.uses_penalties or track_penalties,
-            sp=self.sp, kv_heads=model.n_local_kv_heads)
+            sp=self.sp, kv_heads=None if routed else model.n_local_kv_heads)
         self.cache_rows = self.state.cache.kv[0].shape[1]
         # host mirror of each slot's progress (it advances deterministically)
         # sizes the chunks, checks the cache bounds and gates the filters
@@ -759,6 +784,8 @@ class ServeEngine(EngineBase):
         idle stream (after a sync) beside time.time()."""
         super().reset_stats()
         self._decode_base = (self._graphs.replays, self._graphs.eager)
+        if self._expert_rows is not None:
+            self._expert_rows.zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             self._anchor = self._event()
@@ -873,8 +900,12 @@ class ServeEngine(EngineBase):
         """The gauges (`EngineBase._gauges`), read from the host mirror: no
         device read; then `decode_graphed_share`, the share of the decode
         steps since `reset_stats` that were graph replays (None before
-        the first step)."""
+        the first step); for a routed model `moe_expert_rows` [routed
+        layers][experts], the one device read."""
         replays = self._graphs.replays - self._decode_base[0]
         steps = replays + self._graphs.eager - self._decode_base[1]
-        return {**self._gauges(int((self._slot_remaining > 0).sum())),
-                "decode_graphed_share": replays / steps if steps else None}
+        out = {**self._gauges(int((self._slot_remaining > 0).sum())),
+               "decode_graphed_share": replays / steps if steps else None}
+        if self._expert_rows is not None:
+            out["moe_expert_rows"] = self._expert_rows.tolist()
+        return out

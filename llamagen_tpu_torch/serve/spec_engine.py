@@ -265,6 +265,10 @@ class SpecEngine(EngineBase):
                 "tensor-parallel serving is ServeEngine(model, tp=) on a "
                 "TP shard (parallel/tp_decode.py::shard_tp_params)")
         cfg, dcfg = target.cfg, draft.cfg
+        if not isinstance(cfg, GPTConfig) or not isinstance(dcfg, GPTConfig):
+            raise NotImplementedError(
+                "SpecEngine serves GPT models: the MLA + MoE model is "
+                "served by ServeEngine")
         if dcfg.vocab_size != cfg.vocab_size:
             raise ValueError("the draft and the target vocabularies must "
                              "match")
